@@ -1,30 +1,55 @@
 """Smoke run of turkish_asr_torch on one CUDA card: `python3 chip_smoke.py`.
 
-Three phases; any failure raises and the script exits non-zero.
+Phases; any failure raises and the script exits non-zero.
 
-1. Setup: prints the card's name and power limit (nvidia-smi) and builds
-   the CUDA kernel from turkish_asr_torch/csrc with nvcc.
-2. Kernel: the flash-attention kernel against its plain PyTorch version on
-   the card, B=4, H=4, D=64, T' in {26, 201, 601, 801}, Kh in {1, 4},
-   ragged lengths with a length-0 row, bf16 and fp32 inputs. Tolerances:
-   fp32 inputs 1e-4 abs on out and lse; bf16 inputs 2e-2 abs on out and
-   1e-3 on lse (both round the normalized p to bf16 before p @ v, but the
-   row sums are taken in another order, so a p next to a rounding boundary
-   may round the other way). Median CUDA-event times of both.
-3. Slice: a flagship-width model (80 mels, d_model 256, 4 heads, 8 blocks,
-   56 classes) with seeded random weights, saved as a reference-layout .pt
-   and served by turkish_asr_torch.serve.server on 127.0.0.1; /health,
-   three single-file requests (1 s, 8 s, 24 s), one with timestamps and one
-   3-file batch. The kernel must have launched 8 times per forward. Then
-   the served bf16 logits of the 8 s input are held against the same model
-   with attention routed through the plain version, and a 1 s input in
-   fp32 on the card against the CPU.
+1. Setup: prints the card's name and power limit (nvidia-smi), then builds
+   every CUDA kernel from turkish_asr_torch/csrc with nvcc, one nvcc per
+   source, all started together.
+2. Attention kernels: the flash-attention forward (with dropout 0 and 0.1)
+   and backward against their plain PyTorch versions on the card, B=4, H=4,
+   D=64, T' in {26, 201, 601, 801}, Kh in {1, 4}, ragged lengths with a
+   length-0 row, bf16 and fp32 inputs. Tolerances: forward out 1e-4 (fp32
+   inputs) and 2e-2 (bf16: both round p to bf16, row sums in another
+   order), lse 1e-3; backward dq, dk, dv within 1e-4 of the largest
+   gradient (the kernel rebuilds the forward's p bit for bit and both run
+   fp32 math on widened inputs). The dropout dump kernel must be
+   bit-identical to the plain hash.
+3. CTC kernels: forward and backward against the plain version at B=32,
+   T' in {200, 800}, L in {64, 512}, V in {56, 1000, 32768}, ragged
+   lengths, a dummy row (1 frame, no target) and, at T'=200 with L=512,
+   impossible alignments. Tolerances: losses 1e-5 relative (+1e-4
+   absolute); gradients 1e-4 of 1 + |plain|: the same fp32 recursion, with
+   the lanes of a label summed in another order, and a row whose alignment
+   is impossible carries unscaled lane values that sum to hundreds (the
+   loss's zero_infinity multiplies them by 0). Median CUDA-event times of
+   kernels and plain versions throughout.
+4. Training: a synthetic corpus (tones with character transcripts, 1-8 s)
+   trained through turkish_asr_torch.main at flagship width (80 mels,
+   d_model 256, 4 heads MQA, 8 blocks, char tokenizer, dropout 0.1,
+   --augment, bf16, batch 32, per-block recomputation) for >= 20 optimizer
+   steps: the loss must be finite and fall, and every step must launch the
+   attention forward >= 16 times (8 blocks and their recompute), its
+   backward 8 times and each CTC kernel once. Then a resume from the
+   checkpoint, and a run with --accumulation_steps 2.
+5. Gradient check: one fp32 train step of the flagship model (dropout on,
+   the same seeds) with the kernels against the same step with every
+   kernel replaced by its plain version: each parameter's gradient within
+   1e-3 of its largest element (or of 1e-4 of the largest gradient, for
+   the biases whose gradient is rounding noise), the loss within 1e-5
+   relative.
+6. Serving: the trained .pt answers one /transcribe through ASRService;
+   then the flagship model with seeded random weights, served by
+   turkish_asr_torch.serve.server on 127.0.0.1 (/health, 1 s, 8 s, 24 s,
+   timestamps, a 3-file batch) with 8 forward-kernel launches per forward,
+   bf16 logits held against the plain path and fp32 on the card against
+   the CPU.
 
-The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts, errors and times.
+The last three lines are the card, the kernels (launch counts from the
+training run, errors, times) and {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -32,6 +57,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 import uuid
 from unittest import mock
@@ -42,6 +68,11 @@ import torch
 SR = 16000
 KERNEL_SHAPES = dict(B=4, H=4, D=64, T=(26, 201, 601, 801), Kh=(1, 4))
 TOLERANCES = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}  # (out, lse)
+CTC_SHAPES = dict(B=32, T=(200, 800), L=(64, 512), V=(56, 1000, 32768))
+HEADLINE = dict(dtype=torch.bfloat16, Kh=1, T=201, rate=0.1)  # the training step's shape
+TRAIN_EPOCHS = 5
+WORDS = ("merhaba", "evet", "hayır", "bir", "iki", "üç", "dört", "beş", "altı", "yedi",
+         "sekiz", "dokuz", "on", "güneş", "deniz", "kitap")
 
 
 def _median_ms(fn, reps=20, warmup=3):
@@ -58,41 +89,339 @@ def _median_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def kernel_phase():
-    from turkish_asr_torch.ops.flash_attention import flash_attention
-    from turkish_asr_torch.ops._flash_attention import flash_attention_fwd_ref
+def _counts():
+    from turkish_asr_torch.ops.ctc import ctc_loss
+    from turkish_asr_torch.ops.flash_attention import dump_keep_mask, flash_attention
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.launches_bwd,
+            "dropout_mask": dump_keep_mask.launches,
+            "ctc_fwd": ctc_loss.launches_fwd, "ctc_bwd": ctc_loss.launches_bwd}
+
+
+def _reset_counts():
+    from turkish_asr_torch.ops.ctc import ctc_loss
+    from turkish_asr_torch.ops.flash_attention import dump_keep_mask, flash_attention
+    flash_attention.launches = flash_attention.launches_bwd = 0
+    dump_keep_mask.launches = 0
+    ctc_loss.launches_fwd = ctc_loss.launches_bwd = 0
+
+
+def build_phase():
+    from turkish_asr_torch.ops import _build, ctc, flash_attention as fa
+    libraries = {"flash_attention_fwd": fa.KERNEL_SOURCES, "flash_attention_bwd": fa.BWD_SOURCES,
+                 "dropout_mask": fa.DUMP_SOURCES, "ctc_fwd": ctc.FWD_SOURCES,
+                 "ctc_bwd": ctc.BWD_SOURCES}
+    start = time.perf_counter()
+    _build.build_all(libraries)
+    fa.load_kernel(), fa.load_bwd_kernel(), fa.load_dump_kernel()
+    ctc.load_fwd_kernel(), ctc.load_bwd_kernel()
+    print(f"kernel build + load ({len(libraries)} libraries in parallel): "
+          f"{time.perf_counter() - start:.3f} s", flush=True)
+    for name, sources in libraries.items():
+        print(f"  {_build.library_path(name, sources)}", flush=True)
+
+
+def attention_phase():
+    """Forward (dropout 0 and 0.1) and backward kernels against the plain
+    versions, and the dump kernel against the plain hash."""
+    from turkish_asr_torch.ops import flash_attention as fa
+    from turkish_asr_torch.ops._dropout import keep_mask_ref
+    from turkish_asr_torch.ops._flash_attention import (
+        flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
 
     gen = torch.Generator().manual_seed(0)
     B, H, D = KERNEL_SHAPES["B"], KERNEL_SHAPES["H"], KERNEL_SHAPES["D"]
-    max_err, headline = 0.0, None
+    err = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    times = {}
     for dtype in (torch.float32, torch.bfloat16):
         for Kh in KERNEL_SHAPES["Kh"]:
             for T in KERNEL_SHAPES["T"]:
                 q = torch.randn(B, H, T, D, generator=gen).to("cuda", dtype)
                 k = torch.randn(B, Kh, T, D, generator=gen).to("cuda", dtype)
                 v = torch.randn(B, Kh, T, D, generator=gen).to("cuda", dtype)
+                g = torch.randn(B, H, T, D, generator=gen).cuda()
                 lens = torch.tensor([T, (2 * T) // 3, 0, 1])
                 mask = (torch.arange(T)[None, :] < lens[:, None]).cuda()
-                out, lse = flash_attention(q, k, v, mask)
-                ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, mask)
+                for rate in (0.0, 0.1):
+                    seed = 1000 + T
+                    out, lse, m, l = fa._fwd(q, k, v, mask, rate, seed)
+                    ref_out, ref_lse, _, _ = flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed)
+                    delta = (g * out).sum(-1)
+                    grads = fa._bwd(q, k, v, mask, m, l, delta, g, rate, seed)
+                    ref_grads = flash_attention_bwd_ref(q, k, v, mask, m, l, delta, g, rate, seed)
+                    torch.cuda.synchronize()
+                    tensors = (out, lse) + tuple(grads)
+                    if not all(torch.isfinite(t).all() for t in tensors):
+                        raise AssertionError(f"non-finite attention output at {dtype} Kh={Kh} "
+                                             f"T={T} rate={rate}")
+                    err_o = (out - ref_out).abs().max().item()
+                    err_l = (lse - ref_lse).abs().max().item()
+                    err_g = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                                for a, b in zip(grads, ref_grads))
+                    abs_g = max((a - b).abs().max().item() for a, b in zip(grads, ref_grads))
+                    tol_o, tol_l = TOLERANCES[dtype]
+                    if err_o > tol_o or err_l > tol_l or err_g > 1e-4:
+                        raise AssertionError(
+                            f"attention kernels disagree at {dtype} Kh={Kh} T={T} rate={rate}: "
+                            f"out {err_o} (tol {tol_o}), lse {err_l} (tol {tol_l}), "
+                            f"grads {err_g} (tol 1e-4 of the largest)")
+                    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], err_o, err_l)
+                    err["flash_attention_bwd"] = max(err["flash_attention_bwd"], abs_g)
+                    fwd_ms = _median_ms(lambda: fa._fwd(q, k, v, mask, rate, seed))
+                    fwd_plain = _median_ms(
+                        lambda: flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed))
+                    bwd_ms = _median_ms(lambda: fa._bwd(q, k, v, mask, m, l, delta, g, rate, seed))
+                    bwd_plain = _median_ms(lambda: flash_attention_bwd_ref(
+                        q, k, v, mask, m, l, delta, g, rate, seed))
+                    print(f"attention {str(dtype)[6:]} B={B} H={H} Kh={Kh} T'={T} D={D} "
+                          f"rate={rate}: max|out-ref|={err_o:.3e} max|lse-ref|={err_l:.3e} "
+                          f"grads rel {err_g:.3e}; fwd kernel {fwd_ms:.4f} ms, plain "
+                          f"{fwd_plain:.4f} ms; bwd kernel {bwd_ms:.4f} ms, plain "
+                          f"{bwd_plain:.4f} ms", flush=True)
+                    if (dtype, Kh, T, rate) == tuple(HEADLINE.values()):
+                        times["flash_attention_fwd"] = (fwd_ms, fwd_plain)
+                        times["flash_attention_bwd"] = (bwd_ms, bwd_plain)
+
+    T = max(KERNEL_SHAPES["T"])
+    keep = fa.dump_keep_mask(B, H, T, 0xC0FFEE, 0.1, "cuda")
+    want = keep_mask_ref(0xC0FFEE, B, H, T, 0.1, "cuda")
+    if not torch.equal(keep, want):
+        raise AssertionError(f"dump kernel differs from the plain hash in "
+                             f"{(keep != want).sum().item()} elements")
+    share = keep.float().mean().item()
+    if abs(share - 0.9) > 5 * math.sqrt(0.09 / keep.numel()):
+        raise AssertionError(f"kept share {share} is not within 5 sigma of 0.9")
+    times["dropout_mask"] = (_median_ms(lambda: fa.dump_keep_mask(B, H, T, 7, 0.1, "cuda")),
+                             _median_ms(lambda: keep_mask_ref(7, B, H, T, 0.1, "cuda")))
+    err["dropout_mask"] = 0.0
+    print(f"dropout dump B={B} H={H} T'={T}: bit-identical to the plain hash, kept share "
+          f"{share:.5f}; kernel {times['dropout_mask'][0]:.4f} ms, plain "
+          f"{times['dropout_mask'][1]:.4f} ms", flush=True)
+    return err, times
+
+
+def ctc_phase():
+    from turkish_asr_torch.ops import ctc
+    from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref, ctc_topology
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B = CTC_SHAPES["B"]
+    err = {"ctc_fwd": 0.0, "ctc_bwd": 0.0}
+    times = {}
+    for T in CTC_SHAPES["T"]:
+        for L in CTC_SHAPES["L"]:
+            for V in CTC_SHAPES["V"]:
+                lp = torch.log_softmax(torch.randn(B, T, V, device="cuda", generator=gen), -1)
+                tg = torch.randint(1, V, (B, L), device="cuda", generator=gen)
+                il = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=gen)
+                tl = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+                il[-1], tl[-1] = 1, 0  # collate's dummy row
+                cot = torch.rand(B, device="cuda", generator=gen)
+                ext, skip = ctc_topology(tg, 0)
+                nll, alpha = ctc._forward(lp, ext, skip, il, tl)
+                grad = ctc._backward(lp, ext, skip, il, tl, alpha, nll, cot, 0)
+                ref_nll, ref_alpha = ctc_fwd_ref(lp, ext, skip, il, tl)
+                ref_grad = ctc_bwd_ref(lp, ext, skip, il, tl, ref_alpha, ref_nll, cot)
                 torch.cuda.synchronize()
-                if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
-                    raise AssertionError(f"non-finite kernel output at {dtype} Kh={Kh} T={T}")
-                err_o = (out - ref_out).abs().max().item()
-                err_l = (lse - ref_lse).abs().max().item()
-                tol_o, tol_l = TOLERANCES[dtype]
-                if err_o > tol_o or err_l > tol_l:
-                    raise AssertionError(f"kernel disagrees at {dtype} Kh={Kh} T={T}: "
-                                         f"out {err_o} (tol {tol_o}), lse {err_l} (tol {tol_l})")
-                ms = _median_ms(lambda: flash_attention(q, k, v, mask))
-                plain_ms = _median_ms(lambda: flash_attention_fwd_ref(q, k, v, mask))
-                print(f"kernel {str(dtype)[6:]} B={B} H={H} Kh={Kh} T'={T} D={D}: "
-                      f"max|out-ref|={err_o:.3e} max|lse-ref|={err_l:.3e} "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-                max_err = max(max_err, err_o, err_l)
-                if dtype == torch.bfloat16 and Kh == 1 and T == max(KERNEL_SHAPES["T"]):
-                    headline = (ms, plain_ms)
-    return max_err, headline
+                if not (torch.isfinite(nll).all() and torch.isfinite(grad).all()):
+                    raise AssertionError(f"non-finite CTC output at T={T} L={L} V={V}")
+                err_f = ((nll - ref_nll).abs() / (1.0 + ref_nll.abs())).max().item()
+                err_b = ((grad - ref_grad).abs() / (1.0 + ref_grad.abs())).max().item()
+                if ((nll - ref_nll).abs() > 1e-5 * ref_nll.abs() + 1e-4).any() or err_b > 1e-4:
+                    raise AssertionError(f"CTC kernels disagree at T={T} L={L} V={V}: "
+                                         f"nll {err_f} (tol 1e-5 rel + 1e-4), grad {err_b} "
+                                         f"(tol 1e-4 of 1 + |plain|)")
+                feasible = 2 * tl <= il  # rows whose losses are not the 1e30 sentinel
+                err["ctc_fwd"] = max(err["ctc_fwd"],
+                                     (nll - ref_nll)[feasible].abs().max().item())
+                err["ctc_bwd"] = max(err["ctc_bwd"], (grad - ref_grad).abs().max().item())
+                fwd_ms = _median_ms(lambda: ctc._forward(lp, ext, skip, il, tl), reps=5, warmup=1)
+                bwd_ms = _median_ms(lambda: ctc._backward(lp, ext, skip, il, tl, alpha, nll, cot, 0),
+                                    reps=5, warmup=1)
+                fwd_plain = _median_ms(lambda: ctc_fwd_ref(lp, ext, skip, il, tl), reps=3, warmup=1)
+                bwd_plain = _median_ms(lambda: ctc_bwd_ref(lp, ext, skip, il, tl, ref_alpha,
+                                                           ref_nll, cot), reps=3, warmup=1)
+                impossible = int((2 * tl > il).sum().item())
+                print(f"ctc B={B} T'={T} L={L} V={V} (S={2 * L + 1}, {impossible} rows with "
+                      f"more labels than half the frames): nll rel {err_f:.3e}, grad "
+                      f"{err_b:.3e}; fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms; "
+                      f"bwd kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms", flush=True)
+                if (T, L, V) == (200, 64, 56):
+                    times["ctc_fwd"] = (fwd_ms, fwd_plain)
+                    times["ctc_bwd"] = (bwd_ms, bwd_plain)
+                del lp, grad, ref_grad, alpha, ref_alpha
+    return err, times
+
+
+def _write_corpus(root, n):
+    from turkish_asr_torch.audio.wavio import write_wav
+    os.makedirs(root)
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        seconds = (1.0, 2.5, 4.0, 6.0, 8.0)[i % 5]
+        words = [WORDS[j] for j in rng.integers(0, len(WORDS), max(1, int(seconds)))]
+        write_wav(os.path.join(root, f"u{i:03d}.wav"), _tone(seconds, 100 + i), SR)
+        with open(os.path.join(root, f"u{i:03d}.txt"), "w", encoding="utf-8") as f:
+            f.write(" ".join(words))
+
+
+def train_phase(workdir):
+    """Returns (the kernel counts of the main training run, the final .pt)."""
+    from turkish_asr_torch.main import main as train_main
+    from turkish_asr_torch.train.trainer import Trainer
+
+    corpus = os.path.join(workdir, "corpus")
+    _write_corpus(corpus, 110)  # 99 train (4 batches of <= 32), 11 valid
+    run = os.path.join(workdir, "run")
+    argv = ["--data_path", corpus, "--val_split", "0.1", "--test_split", "0.0",
+            "--n_mel_channels", "80", "--d_model", "256", "--n_heads", "4", "--n_blocks", "8",
+            "--encoder_dropout", "0.1", "--augment", "--precision", "bf16", "--batch_size", "32",
+            "--learning_rate", "1e-3", "--save_interval", "1", "--log_interval", "1",
+            "--num_workers", "4", "--device", "cuda"]
+
+    per_step = []
+    real_step = Trainer.train_step
+
+    def counted_step(self, batch, seed):
+        before = _counts()
+        loss = real_step(self, batch, seed)
+        torch.cuda.synchronize()
+        after = _counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return loss
+
+    _reset_counts()
+    start = time.perf_counter()
+    with mock.patch.object(Trainer, "train_step", counted_step):
+        trainer = train_main(argv + ["--checkpoint_dir", run, "--epochs", str(TRAIN_EPOCHS)])
+    counts = _counts()
+    seconds = time.perf_counter() - start
+    losses = trainer.losses
+    print(f"training: {len(losses)} steps ({trainer.global_step} optimizer steps) in "
+          f"{seconds:.3f} s; losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"kernel launches in the training run: {counts}", flush=True)
+    if trainer.global_step < 20 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training: {trainer.global_step} optimizer steps, losses {losses}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f"training loss did not fall: first 3 {first}, last 3 {last}")
+    for i, step in enumerate(per_step):
+        if (step["flash_attention_fwd"] < 16 or step["flash_attention_bwd"] != 8
+                or step["ctc_fwd"] != 1 or step["ctc_bwd"] != 1):
+            raise AssertionError(f"step {i} launched {step}; expected attention forward >= 16, "
+                                 f"backward 8, CTC forward 1 and backward 1")
+    print(f"every step: {per_step[0]} (first), loss {first:.4f} -> {last:.4f} "
+          f"(mean of the first and last 3)", flush=True)
+    names = set(os.listdir(run))
+    want = {f"checkpoint_epoch_{e}.pt" for e in range(1, TRAIN_EPOCHS + 1)}
+    want |= {"best_model.pt", "turkish_conformer_final.pt"}
+    if not want <= names:
+        raise AssertionError(f"checkpoints missing: {sorted(want - names)}")
+
+    resumed = train_main(argv + ["--checkpoint_dir", run, "--epochs", str(TRAIN_EPOCHS + 1),
+                                 "--resume"])
+    if resumed.start_epoch != TRAIN_EPOCHS + 1 or resumed.global_step <= trainer.global_step:
+        raise AssertionError(f"resume: start epoch {resumed.start_epoch}, global step "
+                             f"{resumed.global_step} after {trainer.global_step}")
+    print(f"resumed at epoch {resumed.start_epoch}: global step {trainer.global_step} -> "
+          f"{resumed.global_step}, losses {[round(x, 4) for x in resumed.losses]}", flush=True)
+
+    accum = train_main(argv + ["--checkpoint_dir", os.path.join(workdir, "run_accum"),
+                               "--epochs", "1", "--accumulation_steps", "2"])
+    micro = len(accum.losses)
+    if accum.global_step != -(-micro // 2) or not all(math.isfinite(x) for x in accum.losses):
+        raise AssertionError(f"accumulation 2: {micro} micro-steps gave {accum.global_step} "
+                             f"optimizer steps, losses {accum.losses}")
+    print(f"--accumulation_steps 2: {micro} micro-steps, {accum.global_step} optimizer steps, "
+          f"losses {[round(x, 4) for x in accum.losses]}", flush=True)
+    return counts, os.path.join(run, "turkish_conformer_final.pt")
+
+
+def gradient_check():
+    """One fp32 train step, kernels against plain versions, same seeds."""
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    from turkish_asr_torch.ops import ctc, flash_attention as fa
+    from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref
+    from turkish_asr_torch.ops._flash_attention import (
+        flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
+    from turkish_asr_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(n_mels=80, d_model=256, n_heads=4, n_blocks=8, n_classes=56, dropout=0.1)
+    model = init_model(cfg, torch.Generator().manual_seed(1)).cuda()
+    rng = np.random.default_rng(5)
+    B, S = 8, 8 * SR
+    lens = np.asarray([S, S, 6 * SR, 5 * SR, 4 * SR, 3 * SR, 2 * SR, 640], np.int32)
+    wav = np.zeros((B, S), np.float32)
+    for i, n in enumerate(lens):
+        wav[i, :n] = _tone(n / SR, 50 + i)
+    tl = np.asarray([40, 35, 30, 25, 20, 15, 10, 0], np.int32)
+    batch = {"waveforms": wav, "wav_lengths": lens,
+             "targets": rng.integers(1, 56, (B, 64)).astype(np.int32), "target_lengths": tl,
+             "sample_mask": np.asarray([1] * 7 + [0], np.float32)}
+    config = types.SimpleNamespace(no_remat=False, spec_augment_freq=27, spec_augment_time=100)
+    trainer = Trainer(model, None, None, config, mock.Mock(), device="cuda",
+                      compute_dtype=torch.float32)
+    names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
+
+    def step():
+        loss, bn, _, _ = trainer._loss(trainer._to_device(batch), True, seed=1234)
+        grads = torch.autograd.grad(loss, params)
+        return loss.item(), grads, bn
+
+    loss_k, grads_k, bn_k = step()
+    with mock.patch.object(fa, "_fwd", flash_attention_fwd_stats_ref), \
+            mock.patch.object(fa, "_bwd", flash_attention_bwd_ref), \
+            mock.patch.object(ctc, "_forward", ctc_fwd_ref), \
+            mock.patch.object(ctc, "_backward", lambda *a: ctc_bwd_ref(*a[:-1])):
+        before = _counts()
+        loss_p, grads_p, bn_p = step()
+        if _counts() != before:
+            raise AssertionError("the plain step launched a kernel")
+    # Each tensor's difference over its largest element, floored at 1e-4 of
+    # the largest gradient anywhere: the depthwise convs' biases feed
+    # BatchNorm with batch statistics, which removes them exactly, so their
+    # gradients are rounding noise on both sides.
+    floor = 1e-4 * max(g.abs().max().item() for g in grads_p)
+    rel = {n: (a - b).abs().max().item() / max(b.abs().max().item(), floor)
+           for n, a, b in zip(names, grads_k, grads_p)}
+    worst_name = max(rel, key=rel.get)
+    worst = rel[worst_name]
+    bn_err = max((a - b).abs().max().item() for x, y in zip(bn_k, bn_p) for a, b in zip(x, y))
+    print(f"gradient check (fp32, flagship, dropout 0.1, B={B}): loss kernel {loss_k:.6f}, "
+          f"plain {loss_p:.6f}; worst gradient tensor {worst_name}: max|kernel - plain| / "
+          f"max|plain| {worst:.3e}; BatchNorm statistics max diff {bn_err:.3e}", flush=True)
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst > 1e-3 or bn_err > 1e-4:
+        raise AssertionError("the kernel train step disagrees with the plain one")
+    return worst
+
+
+def serve_trained(pt):
+    from turkish_asr_torch.serve.server import ASRService, ServerConfig, make_stdlib_server
+    from turkish_asr_torch.audio.wavio import write_wav
+
+    server_cfg = ServerConfig()
+    server_cfg.MODEL_PATH = pt
+    service = ASRService(server_cfg, warmup=False, device="cuda")
+    if service.asr is None:
+        raise AssertionError(f"the service did not load the trained model {pt}")
+    server = make_stdlib_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+            write_wav(f.name, _tone(4, 9), SR)
+            with open(f.name, "rb") as fh:
+                content = fh.read()
+        status, payload, ms = _post(f"http://127.0.0.1:{server.server_address[1]}/transcribe",
+                                    [("file", "trained.wav", content)])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if status != 200 or not isinstance(payload.get("text"), str):
+        raise AssertionError(f"/transcribe with the trained model: {status} {payload}")
+    print(f"trained .pt served: POST /transcribe {ms:.2f} ms, text={payload['text'][:40]!r}",
+          flush=True)
 
 
 def _multipart(files):
@@ -121,7 +450,7 @@ def _post(url, files):
     return status, payload, (time.perf_counter() - start) * 1000
 
 
-def slice_phase(workdir):
+def serving_phase(workdir):
     from turkish_asr_torch.audio.wavio import write_wav
     from turkish_asr_torch.models import attention
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
@@ -245,8 +574,6 @@ def main():
               file=sys.stderr)
         return 1
     import turkish_asr_torch  # noqa: F401 — fails outside a checkout of the repo
-    from turkish_asr_torch.ops import _build
-    from turkish_asr_torch.ops.flash_attention import KERNEL_SOURCES, load_kernel
 
     # Full fp32 for the fp32 comparisons (cuDNN convolutions default to TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -254,23 +581,54 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     start = time.perf_counter()
-    load_kernel()
-    print(f"kernel build + load: {time.perf_counter() - start:.3f} s "
-          f"({_build.library_path('flash_attention_fwd', KERNEL_SOURCES)})", flush=True)
-
-    max_err, (ms, plain_ms) = kernel_phase()
+    build_phase()
+    err, times = attention_phase()
+    ctc_err, ctc_times = ctc_phase()
+    err.update(ctc_err)
+    times.update(ctc_times)
     with tempfile.TemporaryDirectory() as workdir:
-        launches = slice_phase(workdir)
+        counts, pt = train_phase(workdir)
+        gradient_check()
+        serve_trained(pt)
+        _reset_counts()
+        serving_launches = serving_phase(workdir)
+    print(f"all phases: {time.perf_counter() - start:.3f} s", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "turkish_asr_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "turkish_asr_tpu/ops/_flash_attention_impl.py:244",
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]}))
+    replaces = {
+        "flash_attention_fwd": ("turkish_asr_tpu/ops/_flash_attention_impl.py:244",
+                                "turkish_asr_torch/csrc/flash_attention_fwd.cu"),
+        "flash_attention_bwd": ("turkish_asr_tpu/ops/_flash_attention_impl.py:422",
+                                "turkish_asr_torch/csrc/flash_attention_bwd.cu"),
+        "dropout_mask": ("turkish_asr_tpu/ops/_flash_attention_impl.py:170",
+                         "turkish_asr_torch/csrc/dropout_mask.cu"),
+        "ctc_fwd": ("turkish_asr_tpu/ops/_ctc_pallas_impl.py:196",
+                    "turkish_asr_torch/csrc/ctc_fwd.cu"),
+        "ctc_bwd": ("turkish_asr_tpu/ops/_ctc_pallas_impl.py:223",
+                    "turkish_asr_torch/csrc/ctc_bwd.cu"),
+    }
+    also = {"flash_attention_fwd": ["turkish_asr_tpu/ops/_flash_attention_impl.py:290",
+                                    "turkish_asr_tpu/ops/_flash_attention_impl.py:62"],
+            "flash_attention_bwd": ["turkish_asr_tpu/ops/_flash_attention_impl.py:491",
+                                    "turkish_asr_tpu/ops/_flash_attention_impl.py:62"],
+            "dropout_mask": ["turkish_asr_tpu/ops/_flash_attention_impl.py:189"]}
+    kernels = []
+    for name, (tpu, source) in replaces.items():
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": tpu,
+                 "launches": counts[name], "max_abs_err": err[name], "ms": times[name][0],
+                 "plain_ms": times[name][1]}
+        if name in also:
+            entry["also_replaces"] = also[name]
+        if name == "dropout_mask":
+            entry["on_main_path"] = False  # a test helper, as the TPU's dump_keep_mask
+        if name == "flash_attention_fwd":
+            entry["serving_launches"] = serving_launches
+        kernels.append(entry)
     print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,14 +7,30 @@ machine has none), so on the card it runs without the repo's conftest:
 
 Tolerances as chip_smoke.py states them: fp32 inputs 1e-4 absolute on
 out and lse; bf16 inputs 2e-2 on out (both sides round the normalized p
-to bf16, with row sums in another order) and 1e-3 on lse.
+to bf16, with row sums in another order) and 1e-3 on lse. The backward
+kernels rebuild the forward's p bit for bit and run fp32 math on widened
+inputs, as the plain version does, so dq, dk, dv agree within 1e-4 of
+the largest gradient for both input dtypes. The CTC kernels run the plain
+version's fp32 recursion with the card's own exp/log1p: losses within
+1e-5 relative, gradients within 1e-5 absolute (lane sums in another
+order). The dump kernel is bit-identical to the plain hash.
 """
+
+from unittest import mock
 
 import pytest
 import torch
 
-from turkish_asr_torch.ops._flash_attention import flash_attention_fwd_ref
-from turkish_asr_torch.ops.flash_attention import _check, flash_attention
+from turkish_asr_torch.models import attention
+from turkish_asr_torch.models.attention import MultiQueryAttention
+from turkish_asr_torch.ops import ctc as ctc_ops
+from turkish_asr_torch.ops import flash_attention as fa_ops
+from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref, ctc_topology
+from turkish_asr_torch.ops._dropout import keep_mask_ref
+from turkish_asr_torch.ops._flash_attention import (
+    flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_fwd_stats_ref)
+from turkish_asr_torch.ops.ctc import ctc_loss
+from turkish_asr_torch.ops.flash_attention import _check, dump_keep_mask, flash_attention
 
 
 @pytest.fixture
@@ -86,3 +102,107 @@ def test_wrapper_checks_inputs(change, match):
     with pytest.raises(ValueError, match=match):
         _check(*change(q, k, v, mask))
     _check(q, k, v, mask)
+
+
+@pytest.mark.cuda
+def test_attention_gradients_reach_q_k_v_on_the_card(cuda):
+    """Every projection of the attention module gets the plain version's
+    gradient on the card. Before the kernel had an autograd Function, its
+    output carried no graph, so linear_q/k/v got no gradient at all."""
+    torch.manual_seed(0)
+    weights = MultiQueryAttention(64, 4).state_dict()
+    grads = []
+    for plain in (False, True):
+        mod = MultiQueryAttention(64, 4)
+        mod.load_state_dict(weights)
+        mod.to(cuda)
+        x = torch.randn(2, 37, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
+        mask = (torch.arange(37)[None, :] < torch.tensor([37, 20])[:, None]).to(cuda)
+        fn = ((lambda q, k, v, m, r, s: flash_attention_fwd_ref(q, k, v, m, r, s))
+              if plain else attention.flash_attention)
+        with mock.patch.object(attention, "flash_attention", fn):
+            mod(x, mask, torch.float32, dropout=0.1, seed=3).square().sum().backward()
+        grads.append({n: p.grad for n, p in mod.named_parameters()})
+    for name, g in grads[1].items():
+        got = grads[0][name]
+        assert got is not None and got.abs().max() > 0, name
+        torch.testing.assert_close(got, g, rtol=1e-4, atol=1e-4 * g.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Kh,T,D", [(1, 201, 64), (4, 37, 64), (1, 70, 128), (2, 9, 40)])
+def test_backward_kernel_matches_plain_version(cuda, dtype, Kh, T, D, rate):
+    H = 4 if Kh != 2 else 2
+    q, k, v, mask = _inputs(3, H, Kh, T, D, [T, T // 2, 0], dtype, cuda)
+    g = torch.randn(3, H, T, D, generator=torch.Generator().manual_seed(5)).to(cuda)
+    out, lse, m, l = fa_ops._fwd(q, k, v, mask, rate, 11)
+    want = flash_attention_fwd_stats_ref(q, k, v, mask, rate, 11)
+    torch.testing.assert_close(out, want[0], rtol=0, atol=1e-4 if dtype == torch.float32 else 2e-2)
+    delta = (g * out).sum(-1)
+    before = flash_attention.launches_bwd
+    got = fa_ops._bwd(q, k, v, mask, m, l, delta, g, rate, 11)
+    ref = flash_attention_bwd_ref(q, k, v, mask, m, l, delta, g, rate, 11)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_bwd == before + 1
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(1.0, b.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,T", [(4, 201), (2, 9)])
+def test_dump_kernel_is_the_plain_hash(cuda, H, T):
+    before = dump_keep_mask.launches
+    got = dump_keep_mask(3, H, T, 0xC0FFEE, 0.1, cuda)
+    torch.cuda.synchronize()
+    assert dump_keep_mask.launches == before + 1
+    assert torch.equal(got, keep_mask_ref(0xC0FFEE, 3, H, T, 0.1, cuda))
+
+
+def _ctc_case(B, T, V, L, cuda, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(B, T, V, generator=g), -1)
+    tg = torch.randint(1, V, (B, L), generator=g)
+    tg[0, 1::2] = tg[0, 0::2][: tg[0, 1::2].numel()]  # repeats
+    il = torch.randint(T // 2, T + 1, (B,), generator=g)
+    tl = torch.randint(1, L + 1, (B,), generator=g)
+    il[-1], tl[-1] = 1, 0  # collate's dummy row
+    return [x.to(cuda) for x in (lp, tg, il, tl)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,V,L", [(4, 50, 7, 9), (3, 60, 1000, 700), (5, 40, 32768, 12),
+                                     (2, 6, 5, 8)])
+def test_ctc_kernels_match_plain_version(cuda, B, T, V, L):
+    """Ragged lengths, repeated labels, a dummy row, S = 1401 lanes (more
+    than a block's threads), V = 32768, and an impossible alignment (T=6)."""
+    lp, tg, il, tl = _ctc_case(B, T, V, L, cuda)
+    ext, skip = ctc_topology(tg, 0)
+    before = (ctc_loss.launches_fwd, ctc_loss.launches_bwd)
+    nll, alpha = ctc_ops._forward(lp, ext, skip, il, tl)
+    want_nll, want_alpha = ctc_fwd_ref(lp, ext, skip, il, tl)
+    torch.testing.assert_close(nll, want_nll, rtol=1e-5, atol=1e-5)
+    cot = torch.rand(B, generator=torch.Generator().manual_seed(2)).to(cuda)
+    grad = ctc_ops._backward(lp, ext, skip, il, tl, alpha, nll, cot, 0)
+    want = ctc_bwd_ref(lp, ext, skip, il, tl, want_alpha, want_nll, cot)
+    torch.cuda.synchronize()
+    assert (ctc_loss.launches_fwd, ctc_loss.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(grad).all()
+    torch.testing.assert_close(grad, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ctc_loss_gradient_on_the_card(cuda):
+    """The autograd Function end to end: the card's loss and logit gradient
+    against the CPU's."""
+    lp, tg, il, tl = _ctc_case(4, 50, 30, 9, "cpu", seed=3)
+    got = []
+    for dev in (cuda, "cpu"):
+        x = lp.clone().to(dev).requires_grad_(True)
+        loss = ctc_loss(x, tg.to(dev), il.to(dev), tl.to(dev))
+        loss.backward()
+        got.append((loss.item(), x.grad.cpu()))
+    assert abs(got[0][0] - got[1][0]) <= 1e-5 * abs(got[1][0])
+    torch.testing.assert_close(got[0][1], got[1][1], rtol=0, atol=1e-6)

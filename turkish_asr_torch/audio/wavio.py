@@ -209,30 +209,19 @@ def write_wav(path, waveform, sample_rate):
         f.write(pcm)
 
 
-@lru_cache(maxsize=64)
-def _resample_kernel(orig_freq, new_freq, lowpass_filter_width=6, rolloff=0.99):
-    """Polyphase windowed-sinc kernel bank, one filter per output phase.
-
-    Same construction torchaudio's default resampler uses (Hann-windowed
-    sinc lowpass at min(orig,new)*rolloff). Returns (kernels, width) where
-    kernels has shape (new_freq, width*2 + orig_freq).
-    """
-    base_freq = min(orig_freq, new_freq) * rolloff
-    width = math.ceil(lowpass_filter_width * orig_freq / base_freq)
-    idx = np.arange(-width, width + orig_freq, dtype=np.float64)[None, :] / orig_freq
-    t = np.arange(0, -new_freq, -1, dtype=np.float64)[:, None] / new_freq + idx
-    t *= base_freq
-    t = np.clip(t, -lowpass_filter_width, lowpass_filter_width)
-    window = np.cos(t * math.pi / lowpass_filter_width / 2) ** 2
-    t *= math.pi
-    scale = base_freq / orig_freq
-    kernels = np.where(t == 0, 1.0, np.sin(t) / np.where(t == 0, 1.0, t))
-    kernels *= window * scale
-    return kernels.astype(np.float32), width
-
-
 def resample(waveform, orig_freq, new_freq, lowpass_filter_width=6, rolloff=0.99):
-    """Windowed-sinc resample (channels, samples) float32 -> new rate."""
+    """Windowed-sinc resample (channels, samples) float32 -> new rate.
+
+    The filter of torchaudio's default resampler and of the JAX package's
+    ``resample`` (Hann-windowed sinc lowpass at min(orig, new) * rolloff,
+    in the rates reduced by their gcd), evaluated only at the taps inside
+    its support: output sample j sums the 2 * width + 1 inputs m around
+    j * o / n with weight k((m / o - j / n) * base). The JAX package builds
+    the whole (n, 2 * width + o) polyphase bank instead, which for a
+    speed-perturbation ratio such as 16000 -> 17777 (gcd 1) is a 1.1 GB
+    table and ~10 s a call; the sums here are the same terms in another
+    order.
+    """
     x = np.asarray(waveform, dtype=np.float32)
     squeeze = x.ndim == 1
     if squeeze:
@@ -240,30 +229,22 @@ def resample(waveform, orig_freq, new_freq, lowpass_filter_width=6, rolloff=0.99
     if orig_freq == new_freq:
         return x[0] if squeeze else x
 
-    if x.shape[0] == 1:
-        from turkish_asr_tpu.native.loader import resample_native
-        native = resample_native(x[0], orig_freq, new_freq,
-                                 lowpass_filter_width, rolloff)
-        if native is not None:
-            return native if squeeze else native[None, :]
-
     g = math.gcd(int(orig_freq), int(new_freq))
     o, n = int(orig_freq) // g, int(new_freq) // g
-    kernels, width = _resample_kernel(o, n, lowpass_filter_width, rolloff)
-
+    base = min(o, n) * rolloff
+    width = math.ceil(lowpass_filter_width * o / base)
     n_channels, length = x.shape
-    target_length = math.ceil(n * length / o)
-    padded = np.pad(x, ((0, 0), (width, width + o)))
-
-    # Strided conv with stride o: each output block of n samples consumes
-    # one input hop of o samples through the (n, K) polyphase filter bank.
-    K = kernels.shape[1]
-    num_hops = (padded.shape[1] - K) // o + 1
-    # Gather frames (channels, num_hops, K) then contract with kernels.
-    frame_idx = np.arange(num_hops)[:, None] * o + np.arange(K)[None, :]
-    frames = padded[:, frame_idx]  # (C, H, K)
-    out = np.einsum("chk,nk->chn", frames, kernels).reshape(n_channels, -1)
-    out = out[:, :target_length]
+    j = np.arange(math.ceil(n * length / o), dtype=np.int64)
+    m = (j * o) // n
+    m = m[:, None] + np.arange(-width, width + 1)[None, :]  # (out, taps) input indices
+    t = (m / o - j[:, None] / n) * base
+    t = np.clip(t, -lowpass_filter_width, lowpass_filter_width)
+    window = np.cos(t * math.pi / lowpass_filter_width / 2) ** 2
+    t *= math.pi
+    kern = np.where(t == 0, 1.0, np.sin(t) / np.where(t == 0, 1.0, t)) * window * (base / o)
+    valid = (m >= 0) & (m < length)
+    taps = np.where(valid[None], x[:, np.clip(m, 0, length - 1)], 0.0)
+    out = (taps * kern.astype(np.float32)[None]).sum(-1).astype(np.float32)
     return out[0] if squeeze else out
 
 

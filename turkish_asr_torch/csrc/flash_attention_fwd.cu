@@ -37,8 +37,20 @@
 // serves every head; with Kh == H each block takes its own head's K/V.
 // Inputs are bf16 or fp32 and are widened to fp32 as they are staged.
 //
+// Attention-weight dropout (training; counterpart of _keep_mask and the
+// per-program seeding of the TPU kernel, :62 and :228/:277): with rate > 0
+// the normalized p is multiplied by 1/(1 - rate) where the position hash
+// of dropout_hash.cuh keeps it and set to 0 where it drops it, before p is
+// rounded to the input dtype (_attend :85-91); lse is taken before
+// dropout. The hash is keyed by position, not by tile, so the backward
+// (flash_attention_bwd.cu) regenerates the same mask with its own tiling.
+// rate == 0 instantiates the kernel without any of that code.
+//
 // Layout: q (B, H, T, D), k and v (B, Kh, T, D), mask (B, T) uint8, all
-// contiguous; out (B, H, T, D) fp32 and lse (B, H, T) fp32.
+// contiguous; out (B, H, T, D) fp32, lse, row_max and row_sum (B, H, T)
+// fp32. row_max and row_sum are the softmax's m and l, which the backward
+// uses to rebuild p = exp(s - m) / l bit for bit: exp(s - lse) cannot do
+// that for a row with no valid key, whose lse rounds to exactly -1e9.
 // Block: 256 threads as a 16 x 16 grid; thread (ty, tx) owns query rows
 // ty + 16 i (i < 4) and, in the score tile, key columns tx + 16 j (j < 4),
 // in the output tile, head-dim columns tx + 16 c (c < DC).
@@ -47,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -76,13 +90,15 @@ __host__ __device__ constexpr size_t smem_floats(int D) {
 }
 
 // DC = head-dim columns per thread in the output tile: 4 covers D <= 64,
-// 8 covers D <= 128.
-template <typename T, int DC>
+// 8 covers D <= 128. kDropout instantiates the dropout code.
+template <typename T, int DC, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ mask,
                  float* __restrict__ out, float* __restrict__ lse,
-                 int H, int Kh, int T_len, int D, float scale) {
+                 float* __restrict__ row_max, float* __restrict__ row_sum,
+                 int H, int Kh, int T_len, int D, float scale,
+                 uint32_t seed, uint32_t threshold, float inv_keep) {
   extern __shared__ float smem[];
   const int ld = D + 1;  // odd stride: column reads hit distinct banks
   const int ldp = kBlockK + 1;
@@ -107,7 +123,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + kv_off;
   const uint8_t* mb = mask + static_cast<size_t>(b) * T_len;
   float* ob = out + q_off;
-  float* lb = lse + (static_cast<size_t>(b) * H + head) * T_len;
+  const size_t stat_off = (static_cast<size_t>(b) * H + head) * T_len;
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     const int r = idx / D;
@@ -203,7 +219,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the next tile overwrites sK and sMask
   }
 
-  // Pass 2: normalized p, rounded to the input dtype, then p @ v in fp32.
+  // The dropout row hash of each of this thread's rows: a folded MQA row
+  // r is (head r / T, time r % T); an MHA row is (blockIdx.y, r).
+  uint32_t row_hash[kRowsPerThread];
+  if (kDropout) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int row = q0 + ty + 16 * i;
+      const int h = (Kh == 1) ? row / T_len : head;
+      const int t = (Kh == 1) ? row - h * T_len : row;
+      row_hash[i] = dropout_row_hash(seed, b, H, h, t);
+    }
+  }
+
+  // Pass 2: normalized p (dropped and rescaled under dropout), rounded to
+  // the input dtype, then p @ v in fp32.
   for (int k0 = 0; k0 < T_len; k0 += kBlockK) {
     stage(k0, true);
     __syncthreads();
@@ -211,9 +241,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i)
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        sP[(ty + 16 * i) * ldp + tx + 16 * j] =
-            round_to<T>(__fdiv_rn(expf(s[i][j] - m_run[i]), l_run[i]));
+      for (int j = 0; j < kColsPerThread; ++j) {
+        float p = __fdiv_rn(expf(s[i][j] - m_run[i]), l_run[i]);
+        if (kDropout)
+          p = dropout_keep(row_hash[i], k0 + tx + 16 * j, threshold) ? __fmul_rn(p, inv_keep)
+                                                                     : 0.f;
+        sP[(ty + 16 * i) * ldp + tx + 16 * j] = round_to<T>(p);
+      }
     __syncthreads();
 
     for (int kk = 0; kk < kBlockK; ++kk) {
@@ -242,47 +276,72 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = tx + 16 * c;
       if (d < D) ob[static_cast<size_t>(row) * D + d] = acc[i][c];
     }
-    if (tx == 0) lb[row] = m_run[i] + logf(l_run[i]);
+    if (tx == 0) {
+      lse[stat_off + row] = m_run[i] + logf(l_run[i]);
+      row_max[stat_off + row] = m_run[i];
+      row_sum[stat_off + row] = l_run[i];
+    }
   }
 }
 
-template <typename T, int DC>
+template <typename T, int DC, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
-                   void* out, void* lse, int B, int H, int Kh, int T_len, int D,
-                   cudaStream_t stream) {
+                   void* out, void* lse, void* row_max, void* row_sum, int B, int H,
+                   int Kh, int T_len, int D, uint32_t seed, uint32_t threshold,
+                   float inv_keep, cudaStream_t stream) {
   const size_t smem = smem_floats(D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, DC, kDropout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int rows = (Kh == 1) ? H * T_len : T_len;
   const dim3 grid((rows + kBlockQ - 1) / kBlockQ, Kh == 1 ? 1 : H, B);
-  flash_fwd_kernel<T, DC><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, DC, kDropout><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<float*>(out),
-      static_cast<float*>(lse), H, Kh, T_len, D, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<float*>(lse), static_cast<float*>(row_max), static_cast<float*>(row_sum),
+      H, Kh, T_len, D, 1.0f / sqrtf(static_cast<float>(D)), seed, threshold, inv_keep);
   return cudaGetLastError();
+}
+
+template <typename T, int DC>
+cudaError_t launch_rate(const void* q, const void* k, const void* v, const void* mask,
+                        void* out, void* lse, void* row_max, void* row_sum, int B, int H,
+                        int Kh, int T_len, int D, int dropout, uint32_t seed,
+                        uint32_t threshold, float inv_keep, cudaStream_t stream) {
+  return dropout ? launch<T, DC, true>(q, k, v, mask, out, lse, row_max, row_sum, B, H, Kh,
+                                       T_len, D, seed, threshold, inv_keep, stream)
+                 : launch<T, DC, false>(q, k, v, mask, out, lse, row_max, row_sum, B, H, Kh,
+                                        T_len, D, seed, threshold, inv_keep, stream);
 }
 
 }  // namespace
 
 // Returns a cudaError_t: 0 when the launch was accepted.
-// dtype: 0 = fp32 inputs, 1 = bf16 inputs.
+// dtype: 0 = fp32 inputs, 1 = bf16 inputs. dropout: 0 runs the kernel
+// without dropout (seed, threshold and inv_keep unused); 1 keeps p where
+// the position hash is >= threshold and scales it by inv_keep.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse,
+                                   void* row_max, void* row_sum,
                                    int B, int H, int Kh, int T_len, int D,
-                                   int dtype, void* stream) {
+                                   int dtype, int dropout, unsigned int seed,
+                                   unsigned int threshold, float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || D <= 0 || D % 8 != 0 || D > 128 ||
       (Kh != 1 && Kh != H) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 1) {
-    err = D <= 64 ? launch<__nv_bfloat16, 4>(q, k, v, mask, out, lse, B, H, Kh, T_len, D, s)
-                  : launch<__nv_bfloat16, 8>(q, k, v, mask, out, lse, B, H, Kh, T_len, D, s);
-  } else {
-    err = D <= 64 ? launch<float, 4>(q, k, v, mask, out, lse, B, H, Kh, T_len, D, s)
-                  : launch<float, 8>(q, k, v, mask, out, lse, B, H, Kh, T_len, D, s);
-  }
-  return static_cast<int>(err);
+  if (dtype == 1)
+    return static_cast<int>(
+        D <= 64 ? launch_rate<__nv_bfloat16, 4>(q, k, v, mask, out, lse, row_max, row_sum, B,
+                                                H, Kh, T_len, D, dropout, seed, threshold,
+                                                inv_keep, s)
+                : launch_rate<__nv_bfloat16, 8>(q, k, v, mask, out, lse, row_max, row_sum, B,
+                                                H, Kh, T_len, D, dropout, seed, threshold,
+                                                inv_keep, s));
+  return static_cast<int>(
+      D <= 64 ? launch_rate<float, 4>(q, k, v, mask, out, lse, row_max, row_sum, B, H, Kh,
+                                      T_len, D, dropout, seed, threshold, inv_keep, s)
+              : launch_rate<float, 8>(q, k, v, mask, out, lse, row_max, row_sum, B, H, Kh,
+                                      T_len, D, dropout, seed, threshold, inv_keep, s));
 }

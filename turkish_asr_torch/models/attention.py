@@ -5,8 +5,9 @@ reference ``state_dict`` keys (``linear_q``, ``linear_k``, ``linear_v``,
 ``linear_out``, ``rotary_emb.inv_freq``). The cast points follow the JAX
 module: projections add their bias in fp32 and then cast to the compute
 dtype; the RoPE tables are cast to the activation dtype; the attention
-core is ``ops.flash_attention`` (the Hopper kernel on CUDA tensors, its
-plain version on CPU tensors), which returns fp32 context.
+core is ``ops.flash_attention`` (the Hopper kernels on CUDA tensors, their
+plain versions on CPU tensors; differentiable, with attention-weight
+dropout inside the kernel in training), which returns fp32 context.
 """
 
 from functools import lru_cache
@@ -87,8 +88,11 @@ class MultiQueryAttention(nn.Module):
         self.linear_v = nn.Linear(d_model, kv_dim)
         self.linear_out = nn.Linear(d_model, d_model)
 
-    def forward(self, x, mask=None, compute_dtype=torch.float32):
-        """x (B, T, D) normalized input; mask (B, T) bool. -> (B, T, D)."""
+    def forward(self, x, mask=None, compute_dtype=torch.float32, dropout=0.0, seed=0):
+        """x (B, T, D) normalized input; mask (B, T) bool. -> (B, T, D).
+
+        ``dropout`` > 0 drops attention weights inside the attention kernel
+        with the position hash keyed by ``seed`` (training)."""
         B, T, D = x.shape
         H, Kh, Dh = self.n_heads, self.kv_heads, self.d_head
         q = dense(self.linear_q, x, compute_dtype).reshape(B, T, H, Dh)
@@ -99,6 +103,6 @@ class MultiQueryAttention(nn.Module):
         q = apply_rope(q, cos, sin).transpose(1, 2).contiguous()  # (B, H, T, Dh)
         k = apply_rope(k, cos, sin).transpose(1, 2).contiguous()  # (B, Kh, T, Dh)
         v = v.transpose(1, 2).contiguous()
-        context, _ = flash_attention(q, k, v, mask)
+        context, _ = flash_attention(q, k, v, mask, dropout, seed)
         context = context.transpose(1, 2).reshape(B, T, D)
         return dense(self.linear_out, context, compute_dtype)

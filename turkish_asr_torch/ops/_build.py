@@ -6,10 +6,12 @@ into ``build/turkish_asr_torch/`` at the root of the checkout (git-ignored)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/turkish_asr_torch/lib<name>-<hash>.so <sources>
 
-The file name carries a hash of the sources and flags, so an edited source
-is rebuilt and an unchanged one is reused. The compiler's output, with the
-registers and shared memory ptxas reports for each kernel, is kept beside
-the library as ``<name>-<hash>.log``.
+The file name carries a hash of the sources, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source is rebuilt and an
+unchanged one is reused. The compiler's output, with the registers and
+shared memory ptxas reports for each kernel, is kept beside the library as
+``<name>-<hash>.log``. ``build_all`` starts one nvcc per library at once,
+so a fresh checkout pays for the slowest build, not the sum.
 """
 
 import ctypes
@@ -43,10 +45,49 @@ def find_nvcc():
 
 def library_path(name, sources):
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(p.name for p in CSRC_DIR.glob("*.cuh"))]:
         digest.update(src.encode())
         digest.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start_nvcc(name, sources):
+    """(process, temporary output, final path) of a started build, or None
+    if the library is built already."""
+    so_path = library_path(name, sources)
+    if so_path.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so_path.with_name(f"{so_path.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC_DIR / s) for s in sources]]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so_path
+
+
+def _finish_nvcc(name, started):
+    proc, tmp, so_path = started
+    output, _ = proc.communicate()
+    so_path.with_suffix(".log").write_text(output)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{output}")
+    os.replace(tmp, so_path)
+
+
+def build_all(libraries):
+    """Build every ``{name: sources}`` library that is not built yet, one
+    nvcc each, all started together; raises if any build fails."""
+    with _lock:
+        started = {name: _start_nvcc(name, srcs) for name, srcs in libraries.items()}
+        failures = []
+        for name, job in started.items():
+            if job is None:
+                continue
+            try:
+                _finish_nvcc(name, job)
+            except RuntimeError as e:
+                failures.append(str(e))
+        if failures:
+            raise RuntimeError("\n".join(failures))
 
 
 def load_library(name, sources):
@@ -55,18 +96,9 @@ def load_library(name, sources):
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        so_path = library_path(name, sources)
-        if not so_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so_path.with_name(f"{so_path.stem}.{os.getpid()}.tmp.so")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(CSRC_DIR / s) for s in sources]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            so_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(str(so_path))
+        job = _start_nvcc(name, sources)
+        if job is not None:
+            _finish_nvcc(name, job)
+        lib = ctypes.CDLL(str(library_path(name, sources)))
         _loaded[name] = lib
         return lib

@@ -1,10 +1,24 @@
-"""Flash-attention forward: the dispatching wrapper.
+"""Flash attention: the dispatching wrappers and the autograd Function.
 
-Counterpart of turkish_asr_tpu/ops/flash_attention.py. A tensor on the CPU
-goes to the plain PyTorch version (``_flash_attention.py``); a CUDA tensor
-launches the hand-written Hopper kernel (``csrc/flash_attention_fwd.cu``)
-at every sequence length, or raises for what the kernel does not take.
-``flash_attention.launches`` counts kernel launches.
+Counterpart of turkish_asr_tpu/ops/flash_attention.py and of the custom
+VJP in turkish_asr_tpu/ops/_flash_attention_impl.py (:124-143). A tensor on
+the CPU goes to the plain PyTorch versions (``_flash_attention.py``); a
+CUDA tensor launches the hand-written Hopper kernels
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``) at every
+sequence length, or raises for what they do not take. Both devices go
+through the same ``torch.autograd.Function``: its forward saves
+q, k, v, mask, out, the softmax's row max and sum, and the dropout seed;
+its backward takes delta = rowsum(g * out) in PyTorch, as the TPU package
+takes it outside its kernel, and runs the backward kernel.
+
+Attention-weight dropout (training) is applied inside the kernels from a
+position hash (``_dropout.py``, ``csrc/dropout_hash.cuh``) keyed by
+``seed``, so the backward, and the dump kernel behind ``dump_keep_mask``,
+regenerate the same mask.
+
+``flash_attention.launches`` and ``flash_attention.launches_bwd`` count
+the forward and backward kernel launches; ``dump_keep_mask.launches`` the
+dump kernel's.
 """
 
 import ctypes
@@ -13,19 +27,44 @@ import threading
 import torch
 
 from turkish_asr_torch.ops._build import load_library
-from turkish_asr_torch.ops._flash_attention import flash_attention_fwd_ref
+from turkish_asr_torch.ops._dropout import keep_mask_ref, keep_threshold
+from turkish_asr_torch.ops._flash_attention import (
+    flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
 
 KERNEL_SOURCES = ("flash_attention_fwd.cu",)
+BWD_SOURCES = ("flash_attention_bwd.cu",)
+DUMP_SOURCES = ("dropout_mask.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
 
+def _count(fn, attr="launches"):
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
 def load_kernel():
-    """The kernel's C entry point, building the library at first use."""
-    lib = load_library("flash_attention_fwd", KERNEL_SOURCES)
-    fn = lib.flash_attention_fwd
+    """The forward kernel's C entry point, building the library at first use."""
+    fn = load_library("flash_attention_fwd", KERNEL_SOURCES).flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def load_bwd_kernel():
+    """The backward kernels' C entry point, building the library at first use."""
+    fn = load_library("flash_attention_bwd", BWD_SOURCES).flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def load_dump_kernel():
+    fn = load_library("dropout_mask", DUMP_SOURCES).dump_keep_mask
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2 + [ctypes.c_void_p]
     return fn
 
 
@@ -55,33 +94,134 @@ def _check(q, k, v, mask):
             raise ValueError(f"all inputs must be on {q.device}, got {t.device}")
 
 
-def flash_attention(q, k, v, mask=None):
-    """(out (B, H, T, D) fp32, lse (B, H, T) fp32) of masked attention.
+def _check_dropout(rate, seed):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if not 0 <= int(seed) < 2 ** 32:
+        raise ValueError(f"seed must be in [0, 2^32), got {seed}")
 
-    q (B, H, T, D); k, v (B, Kh, T, D) with Kh in (1, H); mask (B, T) bool
-    or uint8, or None for all keys valid.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_fwd_ref(q, k, v, mask)
-    if q.device.type != "cuda":
+
+def _device_of(q):
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
+    return q.device.type
+
+
+def _mask_u8(mask, B, T, device):
+    if mask is None:
+        return torch.ones((B, T), dtype=torch.uint8, device=device)
+    return mask.view(torch.uint8)
+
+
+def _dropout_args(rate, seed):
+    return (int(rate > 0.0), int(seed), keep_threshold(rate) if rate > 0.0 else 0,
+            1.0 / (1.0 - rate))
+
+
+def _fwd(q, k, v, mask, rate, seed):
+    """(out, lse, row_max, row_sum) from the kernel (CUDA) or its plain
+    version (CPU)."""
+    if _device_of(q) == "cpu":
+        return flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed)
     _check(q, k, v, mask)
     B, H, T, D = q.shape
-    if mask is None:
-        mask = torch.ones((B, T), dtype=torch.uint8, device=q.device)
-    mask = mask.view(torch.uint8)
+    mask = _mask_u8(mask, B, T, q.device)
     out = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lse, row_max, row_sum = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+                             for _ in range(3))
     fn = load_kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), B, H, k.shape[1], T, D,
-                _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+                out.data_ptr(), lse.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+                B, H, k.shape[1], T, D, _DTYPE_CODE[q.dtype], *_dropout_args(rate, seed),
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {rc}")
-    with _count_lock:
-        flash_attention.launches += 1
-    return out, lse
+    _count(flash_attention)
+    return out, lse, row_max, row_sum
+
+
+def _bwd(q, k, v, mask, row_max, row_sum, delta, g, rate, seed):
+    """(dq, dk, dv) fp32 from the backward kernels (CUDA) or the plain
+    version (CPU)."""
+    if _device_of(q) == "cpu":
+        return flash_attention_bwd_ref(q, k, v, mask, row_max, row_sum, delta, g, rate, seed)
+    _check(q, k, v, mask)
+    B, H, T, D = q.shape
+    Kh = k.shape[1]
+    mask = _mask_u8(mask, B, T, q.device)
+    g = g.float().contiguous()
+    dq = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
+    dk, dv = (torch.empty((B, Kh, T, D), dtype=torch.float32, device=q.device)
+              for _ in range(2))
+    fn = load_bwd_kernel()
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                row_max.data_ptr(), row_sum.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, H, Kh, T, D, _DTYPE_CODE[q.dtype],
+                *_dropout_args(rate, seed), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed with CUDA error {rc}")
+    _count(flash_attention, "launches_bwd")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """out, lse of masked attention; differentiable in q, k, v (lse is not)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, rate, seed):
+        out, lse, row_max, row_sum = _fwd(q, k, v, mask, rate, seed)
+        ctx.save_for_backward(q, k, v, mask, out, row_max, row_sum)
+        ctx.rate, ctx.seed = rate, seed
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, mask, out, row_max, row_sum = ctx.saved_tensors
+        delta = (g.float() * out).sum(dim=-1)
+        dq, dk, dv = _bwd(q, k, v, mask, row_max, row_sum, delta, g, ctx.rate, ctx.seed)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def flash_attention(q, k, v, mask=None, dropout_rate=0.0, seed=0):
+    """(out (B, H, T, D) fp32, lse (B, H, T) fp32) of masked attention.
+
+    q (B, H, T, D); k, v (B, Kh, T, D) with Kh in (1, H); mask (B, T) bool
+    or uint8, or None for all keys valid. ``dropout_rate`` in [0, 1) drops
+    attention weights with the position hash keyed by ``seed`` (an int in
+    [0, 2^32)). Differentiable in q, k and v.
+    """
+    rate = float(dropout_rate)
+    _check_dropout(rate, seed)
+    return FlashAttention.apply(q, k, v, mask, rate, int(seed))
 
 
 flash_attention.launches = 0
+flash_attention.launches_bwd = 0
+
+
+def dump_keep_mask(B, H, T, seed, rate, device):
+    """(B, H, T, T) bool: the keep mask the kernels apply for ``seed`` and
+    ``rate`` (query rows against keys, per query head). The dump kernel on
+    a CUDA device, the plain hash on the CPU."""
+    rate = float(rate)
+    _check_dropout(rate, seed)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return keep_mask_ref(seed, B, H, T, rate, device)
+    if device.type != "cuda":
+        raise ValueError(f"dump_keep_mask runs on cpu or cuda, got {device}")
+    keep = torch.empty((B, H, T, T), dtype=torch.uint8, device=device)
+    fn = load_dump_kernel()
+    with torch.cuda.device(device):
+        rc = fn(keep.data_ptr(), B, H, T, int(seed), keep_threshold(rate),
+                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dump_keep_mask launch failed with CUDA error {rc}")
+    _count(dump_keep_mask)
+    return keep.bool()
+
+
+dump_keep_mask.launches = 0

@@ -1,7 +1,7 @@
 """Weight bridge between the JAX package's trees and the port's state_dict.
 
 Counterpart of turkish_asr_tpu/utils/torch_export.py (JAX trees -> reference
-keys) and turkish_asr_tpu/utils/torch_import.py:53-175 (reading a
+keys, and back with ``jax_trees_from_state_dict``) and turkish_asr_tpu/utils/torch_import.py:53-175 (reading a
 reference ``.pt``). Layout mapping, JAX -> torch:
 
 - Linear ``w (in, out)``         -> ``weight (out, in)``
@@ -85,6 +85,58 @@ def state_dict_from_jax(params, state, n_heads):
         norm(f"{p}.norm_ff2.norm", bp["norm_ff2"])
         norm(f"{p}.final_norm.norm", bp["final_norm"])
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+def jax_trees_from_state_dict(sd):
+    """The reverse of ``state_dict_from_jax``: the port's state_dict ->
+    JAX (params, model_state) trees of numpy arrays with stacked
+    (n_blocks, ...) block leaves. The reference-only entries (``inv_freq``,
+    ``num_batches_tracked``, the dead ``norm_conv``) have no JAX leaf."""
+    sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+    def linear(prefix):
+        return {"w": sd[prefix + ".weight"].T.copy(), "b": sd[prefix + ".bias"]}
+
+    def norm(prefix):
+        return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+    def conv1d(prefix):
+        return {"w": sd[prefix + ".weight"].transpose(2, 1, 0).copy(), "b": sd[prefix + ".bias"]}
+
+    def conv2d(prefix):
+        return {"w": sd[prefix + ".weight"].transpose(2, 3, 1, 0).copy(),
+                "b": sd[prefix + ".bias"]}
+
+    blocks, states = [], []
+    i = 0
+    while f"blocks.{i}.ff1.linear1.weight" in sd:
+        p = f"blocks.{i}"
+        blocks.append({
+            "ff1": {"in": linear(f"{p}.ff1.linear1"), "out": linear(f"{p}.ff1.linear2")},
+            "norm_ff1": norm(f"{p}.norm_ff1.norm"),
+            "attn": {n: linear(f"{p}.attn.linear_{n}") for n in ("q", "k", "v", "out")},
+            "norm_attn": norm(f"{p}.norm_attn.norm"),
+            "conv": {"norm": norm(f"{p}.conv.norm.norm"),
+                     "pw1": conv1d(f"{p}.conv.pointwise_conv1"),
+                     "dw": conv1d(f"{p}.conv.depthwise_conv"),
+                     "bn": norm(f"{p}.conv.batch_norm"),
+                     "pw2": conv1d(f"{p}.conv.pointwise_conv2")},
+            "ff2": {"in": linear(f"{p}.ff2.linear1"), "out": linear(f"{p}.ff2.linear2")},
+            "norm_ff2": norm(f"{p}.norm_ff2.norm"),
+            "final_norm": norm(f"{p}.final_norm.norm"),
+        })
+        states.append({"bn": {"mean": sd[f"{p}.conv.batch_norm.running_mean"],
+                              "var": sd[f"{p}.conv.batch_norm.running_var"]}})
+        i += 1
+    params = {"sub1": conv2d("subsample.0"), "sub2": conv2d("subsample.2"),
+              "input_proj": linear("input_proj"), "blocks": _stack(blocks), "fc": linear("fc")}
+    return params, {"blocks": _stack(states)}
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
 
 
 def _index_tree(tree, i):
