@@ -23,7 +23,16 @@ Phases; any failure raises and the script exits non-zero.
    is impossible carries unscaled lane values that sum to hundreds (the
    loss's zero_infinity multiplies them by 0). Median CUDA-event times of
    kernels and plain versions throughout.
-4. Training: a synthetic corpus (tones with character transcripts, 1-8 s)
+4. SwiGLU: the port's A/B (python -m turkish_asr_torch.scripts.ab_swiglu,
+   the fused SwiGLU FFN kernel against the matmul chain) at M in {6400,
+   6401, 25600}, C=256, F=1024, then the kernel at every row tile against
+   the fused plain version on the A/B's inputs with seeded nonzero
+   biases, into an output buffer the allocator last held as NaN: every
+   row finite, max|kernel - plain| <= 2^-7 max|plain| (both sum fp32
+   products of bf16 values in other orders, so g can round one bf16 ulp
+   apart). Median CUDA-event times of the kernel, the fused plain version
+   and the chain at each M.
+5. Training: a synthetic corpus (tones with character transcripts, 1-8 s)
    trained through turkish_asr_torch.main at flagship width (80 mels,
    d_model 256, 4 heads MQA, 8 blocks, char tokenizer, dropout 0.1,
    --augment, bf16, batch 32, per-block recomputation) for >= 20 optimizer
@@ -31,13 +40,13 @@ Phases; any failure raises and the script exits non-zero.
    attention forward >= 16 times (8 blocks and their recompute), its
    backward 8 times and each CTC kernel once. Then a resume from the
    checkpoint, and a run with --accumulation_steps 2.
-5. Gradient check: one fp32 train step of the flagship model (dropout on,
+6. Gradient check: one fp32 train step of the flagship model (dropout on,
    the same seeds) with the kernels against the same step with every
    kernel replaced by its plain version: each parameter's gradient within
    1e-3 of its largest element (or of 1e-4 of the largest gradient, for
    the biases whose gradient is rounding noise), the loss within 1e-5
    relative.
-6. Serving: the trained .pt answers one /transcribe through ASRService;
+7. Serving: the trained .pt answers one /transcribe through ASRService;
    then the flagship model with seeded random weights, served by
    turkish_asr_torch.serve.server on 127.0.0.1 (/health, 1 s, 8 s, 24 s,
    timestamps, a 3-file batch) with 8 forward-kernel launches per forward,
@@ -66,6 +75,7 @@ import numpy as np
 import torch
 
 SR = 16000
+SWIGLU_SHAPES = dict(M=(6400, 6401, 25600), C=256, F=1024)
 KERNEL_SHAPES = dict(B=4, H=4, D=64, T=(26, 201, 601, 801), Kh=(1, 4))
 TOLERANCES = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}  # (out, lse)
 CTC_SHAPES = dict(B=32, T=(200, 800), L=(64, 512), V=(56, 1000, 32768))
@@ -92,29 +102,33 @@ def _median_ms(fn, reps=20, warmup=3):
 def _counts():
     from turkish_asr_torch.ops.ctc import ctc_loss
     from turkish_asr_torch.ops.flash_attention import dump_keep_mask, flash_attention
+    from turkish_asr_torch.ops.swiglu import swiglu
     return {"flash_attention_fwd": flash_attention.launches,
             "flash_attention_bwd": flash_attention.launches_bwd,
             "dropout_mask": dump_keep_mask.launches,
-            "ctc_fwd": ctc_loss.launches_fwd, "ctc_bwd": ctc_loss.launches_bwd}
+            "ctc_fwd": ctc_loss.launches_fwd, "ctc_bwd": ctc_loss.launches_bwd,
+            "swiglu_fwd": swiglu.launches}
 
 
 def _reset_counts():
     from turkish_asr_torch.ops.ctc import ctc_loss
     from turkish_asr_torch.ops.flash_attention import dump_keep_mask, flash_attention
+    from turkish_asr_torch.ops.swiglu import swiglu
     flash_attention.launches = flash_attention.launches_bwd = 0
     dump_keep_mask.launches = 0
     ctc_loss.launches_fwd = ctc_loss.launches_bwd = 0
+    swiglu.launches = 0
 
 
 def build_phase():
-    from turkish_asr_torch.ops import _build, ctc, flash_attention as fa
+    from turkish_asr_torch.ops import _build, ctc, flash_attention as fa, swiglu
     libraries = {"flash_attention_fwd": fa.KERNEL_SOURCES, "flash_attention_bwd": fa.BWD_SOURCES,
                  "dropout_mask": fa.DUMP_SOURCES, "ctc_fwd": ctc.FWD_SOURCES,
-                 "ctc_bwd": ctc.BWD_SOURCES}
+                 "ctc_bwd": ctc.BWD_SOURCES, "swiglu_fwd": swiglu.SOURCES}
     start = time.perf_counter()
     _build.build_all(libraries)
     fa.load_kernel(), fa.load_bwd_kernel(), fa.load_dump_kernel()
-    ctc.load_fwd_kernel(), ctc.load_bwd_kernel()
+    ctc.load_fwd_kernel(), ctc.load_bwd_kernel(), swiglu.load_kernel()
     print(f"kernel build + load ({len(libraries)} libraries in parallel): "
           f"{time.perf_counter() - start:.3f} s", flush=True)
     for name, sources in libraries.items():
@@ -251,6 +265,61 @@ def ctc_phase():
                     times["ctc_bwd"] = (bwd_ms, bwd_plain)
                 del lp, grad, ref_grad, alpha, ref_alpha
     return err, times
+
+
+def swiglu_phase():
+    """The port's SwiGLU A/B at each M (its kernel launches counted), then
+    the kernel at every row tile against the fused plain version.
+
+    Returns (launches in the A/B runs, max abs error, (kernel, plain,
+    chain) median ms at the first M)."""
+    from turkish_asr_torch.ops import swiglu as sw
+    from turkish_asr_torch.ops._swiglu import swiglu_chain, swiglu_fused_ref
+    from turkish_asr_torch.scripts import ab_swiglu
+
+    C, F = SWIGLU_SHAPES["C"], SWIGLU_SHAPES["F"]
+    sw.swiglu.launches = 0
+    for M in SWIGLU_SHAPES["M"]:
+        ab_swiglu.main([str(M), str(C), str(F)])
+    launches = sw.swiglu.launches
+    if launches == 0:
+        raise AssertionError("the SwiGLU A/B launched no kernel")
+    print(f"kernel launches in the SwiGLU A/B runs: {launches}", flush=True)
+
+    rng = np.random.default_rng(1)
+    err, times = 0.0, {}
+    for M in SWIGLU_SHAPES["M"]:
+        x, w1, b1, w2, b2 = ab_swiglu.make_inputs(M, C, F)
+        b1 = (0.1 * rng.standard_normal(b1.shape)).astype(np.float32)
+        b2 = (0.1 * rng.standard_normal(b2.shape)).astype(np.float32)
+        args = sw.args_from_numpy(x, w1, b1, w2, b2, "cuda")
+        ref = swiglu_fused_ref(*args)
+        tol = 2.0 ** -7 * ref.abs().max().item()
+        for tm in sw.ROW_TILES:
+            # The allocator hands the kernel's output the block this NaN
+            # tensor frees, so a row the kernel leaves unwritten shows.
+            poison = torch.full((M, C), float("nan"), dtype=torch.bfloat16, device="cuda")
+            del poison
+            y = sw.swiglu(*args, tm=tm)
+            torch.cuda.synchronize()
+            rows = torch.isfinite(y.float()).all(dim=1)
+            if not rows.all():
+                raise AssertionError(f"swiglu M={M} tm={tm}: {(~rows).sum().item()} rows not "
+                                     f"finite, the first {torch.nonzero(~rows)[0].item()}")
+            e = (y.float() - ref.float()).abs().max().item()
+            if e > tol:
+                raise AssertionError(f"swiglu M={M} tm={tm}: max|kernel - plain| {e} > {tol} "
+                                     f"(2^-7 max|plain|)")
+            err = max(err, e)
+        kernel_ms = _median_ms(lambda: sw.swiglu(*args))
+        plain_ms = _median_ms(lambda: swiglu_fused_ref(*args))
+        chain_ms = _median_ms(lambda: swiglu_chain(*args))
+        times.setdefault("first", (kernel_ms, plain_ms, chain_ms))
+        print(f"swiglu M={M} C={C} F={F}: every row finite at tm {sw.ROW_TILES}, max|kernel - "
+              f"plain| {err:.3e} (tol {tol:.3e}); kernel (tm={sw.DEFAULT_TILE}) "
+              f"{kernel_ms:.4f} ms, fused plain {plain_ms:.4f} ms, chain {chain_ms:.4f} ms",
+              flush=True)
+    return launches, err, times["first"]
 
 
 def _write_corpus(root, n):
@@ -590,6 +659,8 @@ def main():
     ctc_err, ctc_times = ctc_phase()
     err.update(ctc_err)
     times.update(ctc_times)
+    swiglu_launches, err["swiglu_fwd"], swiglu_times = swiglu_phase()
+    times["swiglu_fwd"] = swiglu_times[:2]
     with tempfile.TemporaryDirectory() as workdir:
         counts, pt = train_phase(workdir)
         gradient_check()
@@ -609,12 +680,15 @@ def main():
                     "turkish_asr_torch/csrc/ctc_fwd.cu"),
         "ctc_bwd": ("turkish_asr_tpu/ops/_ctc_pallas_impl.py:223",
                     "turkish_asr_torch/csrc/ctc_bwd.cu"),
+        "swiglu_fwd": ("scripts/ab_swiglu.py:71", "turkish_asr_torch/csrc/swiglu_fwd.cu"),
     }
     also = {"flash_attention_fwd": ["turkish_asr_tpu/ops/_flash_attention_impl.py:290",
                                     "turkish_asr_tpu/ops/_flash_attention_impl.py:62"],
             "flash_attention_bwd": ["turkish_asr_tpu/ops/_flash_attention_impl.py:491",
                                     "turkish_asr_tpu/ops/_flash_attention_impl.py:62"],
-            "dropout_mask": ["turkish_asr_tpu/ops/_flash_attention_impl.py:189"]}
+            "dropout_mask": ["turkish_asr_tpu/ops/_flash_attention_impl.py:189"],
+            "swiglu_fwd": ["scripts/ab_swiglu.py:56"]}
+    counts["swiglu_fwd"] = swiglu_launches
     kernels = []
     for name, (tpu, source) in replaces.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": tpu,
@@ -626,6 +700,9 @@ def main():
             entry["on_main_path"] = False  # a test helper, as the TPU's dump_keep_mask
         if name == "flash_attention_fwd":
             entry["serving_launches"] = serving_launches
+        if name == "swiglu_fwd":
+            entry.update(chain_ms=swiglu_times[2], on_main_path=False,
+                         path="python -m turkish_asr_torch.scripts.ab_swiglu")
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -13,11 +13,18 @@ inputs, as the plain version does, so dq, dk, dv agree within 1e-4 of
 the largest gradient for both input dtypes. The CTC kernels run the plain
 version's fp32 recursion with the card's own exp/log1p: losses within
 1e-5 relative, gradients within 1e-5 absolute (lane sums in another
-order). The dump kernel is bit-identical to the plain hash.
+order). The dump kernel is bit-identical to the plain hash. The SwiGLU
+kernel is held within 2^-7 max|plain| of the fused plain version (exact
+bf16 products summed in fp32 in other orders, so g can round one bf16 ulp
+apart).
 """
 
+import contextlib
+import io
+import re
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,12 +32,15 @@ from turkish_asr_torch.models import attention
 from turkish_asr_torch.models.attention import MultiQueryAttention
 from turkish_asr_torch.ops import ctc as ctc_ops
 from turkish_asr_torch.ops import flash_attention as fa_ops
+from turkish_asr_torch.ops import swiglu as sw
 from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref, ctc_topology
 from turkish_asr_torch.ops._dropout import keep_mask_ref
 from turkish_asr_torch.ops._flash_attention import (
     flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_fwd_stats_ref)
 from turkish_asr_torch.ops.ctc import ctc_loss
+from turkish_asr_torch.ops._swiglu import swiglu_fused_ref
 from turkish_asr_torch.ops.flash_attention import _check, dump_keep_mask, flash_attention
+from turkish_asr_torch.scripts import ab_swiglu
 
 
 @pytest.fixture
@@ -206,3 +216,56 @@ def test_ctc_loss_gradient_on_the_card(cuda):
         got.append((loss.item(), x.grad.cpu()))
     assert abs(got[0][0] - got[1][0]) <= 1e-5 * abs(got[1][0])
     torch.testing.assert_close(got[0][1], got[1][1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [6400, 6401, 25600, 5])
+def test_swiglu_kernel_matches_plain_version(cuda, M):
+    """Every row tile, the A/B's inputs with nonzero biases, the output in
+    a block the allocator last held as NaN (an unwritten row shows)."""
+    rng = np.random.default_rng(M)
+    x, w1, _, w2, _ = ab_swiglu.make_inputs(M, 256, 1024)
+    b1 = (0.1 * rng.standard_normal((1, 2048))).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal((1, 256))).astype(np.float32)
+    args = sw.args_from_numpy(x, w1, b1, w2, b2, cuda)
+    want = swiglu_fused_ref(*args).float()
+    for tm in sw.ROW_TILES:
+        poison = torch.full((M, 256), float("nan"), dtype=torch.bfloat16, device=cuda)
+        del poison
+        before = sw.swiglu.launches
+        got = sw.swiglu(*args, tm=tm)
+        torch.cuda.synchronize()
+        assert sw.swiglu.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == (M, 256)
+        assert torch.isfinite(got.float()).all(dim=1).all()
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=2.0 ** -7 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_swiglu_kernel_takes_narrow_and_ragged_shapes(cuda):
+    """C and F that are no multiple of the kernel's 32-column chunks."""
+    rng = np.random.default_rng(0)
+    x, w1, b1, w2, b2 = (rng.standard_normal(s).astype(np.float32) * 0.3
+                         for s in ((37, 40), (40, 2 * 70), (1, 140), (70, 40), (1, 40)))
+    args = sw.args_from_numpy(x, w1, b1, w2, b2, cuda)
+    want = swiglu_fused_ref(*args).float()
+    for tm in sw.ROW_TILES:
+        got = sw.swiglu(*args, tm=tm).float()
+        torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -7 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_swiglu_ab_script_prints_its_lines(cuda):
+    out = io.StringIO()
+    before = sw.swiglu.launches
+    with contextlib.redirect_stdout(out):
+        result = ab_swiglu.main(["640", "256", "1024"])
+    lines = out.getvalue().splitlines()
+    assert len(lines) == len(sw.ROW_TILES) + 2
+    for line, tm in zip(lines, sw.ROW_TILES):
+        assert re.fullmatch(rf"cuda tm= *{tm}: [0-9.]+ ms \(max err vs chain [0-9.e+-]+\)", line)
+    assert re.fullmatch(r"fused plain: [0-9.]+ ms \(max err vs chain [0-9.e+-]+\)", lines[-2])
+    assert re.fullmatch(r"chain: [0-9.]+ ms M=640 C=256 F=1024", lines[-1])
+    assert sw.swiglu.launches > before
+    assert set(result["tiles"]) == set(sw.ROW_TILES) and result["chain_ms"] > 0

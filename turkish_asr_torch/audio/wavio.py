@@ -16,8 +16,8 @@ dependency here; this module implements the same contract in numpy:
 - ``load_audio``: load + mono-mix + resample to target rate (the
   ``AudioPreprocessor.load_audio`` contract).
 
-A faster C++ implementation can be slotted in via
-``turkish_asr_tpu.native`` — this numpy path is the always-available
+A faster C++ implementation is slotted in via
+``turkish_asr_torch.audio.native`` — this numpy path is the always-available
 fallback and the correctness oracle.
 """
 
@@ -110,7 +110,7 @@ def read_audio(path):
 def read_wav(path):
     """Decode a RIFF/WAVE file.
 
-    Uses the native C++ decoder (turkish_asr_tpu/native) when available,
+    Uses the native C++ decoder (turkish_asr_torch.audio.native) when available,
     with this numpy implementation as the always-available fallback/oracle.
 
     Returns:
@@ -124,7 +124,7 @@ def read_wav(path):
         raise ValueError(f"Not a RIFF/WAVE file: {path}")
 
     try:
-        from turkish_asr_tpu.native.loader import wav_decode_native
+        from turkish_asr_torch.audio.native import wav_decode_native
         native = wav_decode_native(data)
         if native is not None:
             return native
