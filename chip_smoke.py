@@ -6,14 +6,26 @@ Phases; any failure raises and the script exits non-zero.
    every CUDA kernel from turkish_asr_torch/csrc with nvcc, one nvcc per
    source, all started together.
 2. Attention kernels: the flash-attention forward (with dropout 0 and 0.1)
-   and backward against their plain PyTorch versions on the card, B=4, H=4,
-   D=64, T' in {26, 201, 601, 801}, Kh in {1, 4}, ragged lengths with a
-   length-0 row, bf16 and fp32 inputs. Tolerances: forward out 1e-4 (fp32
-   inputs) and 2e-2 (bf16: both round p to bf16, row sums in another
-   order), lse 1e-3; backward dq, dk, dv within 1e-4 of the largest
-   gradient (the kernel rebuilds the forward's p bit for bit and both run
-   fp32 math on widened inputs). The dropout dump kernel must be
-   bit-identical to the plain hash.
+   and backward against their plain PyTorch versions on the card, first at
+   the main path's two shapes (training: B=32, T'=200, dropout 0.1; the
+   long served bucket: B=16, T'=601; both bf16, H=4, Kh=1, D=64), then
+   B=4, H=4, D=64, T' in {26, 201, 601, 801}, Kh in {1, 4}; ragged lengths
+   with a length-0 row, bf16 and fp32 inputs. Tolerances: forward out 1e-4
+   (fp32 inputs) and 2e-2 (bf16: both round p to bf16, row sums in another
+   order), lse 1e-3 (1e-4 for fp32 inputs); backward dq, dk, dv within
+   1e-4 of the largest gradient (the kernel rebuilds the forward's p bit
+   for bit, and its fp32 operands enter the tensor cores as bf16 hi + lo
+   pairs). At the main-path shapes the kernels, their plain versions and
+   torch's scaled_dot_product_attention (forward, and its gradient through
+   autograd) are timed over 20 chained calls, beside single-call medians
+   and each kernel's bound (kernel_bounds). The dropout dump kernel must be
+   bit-identical to the plain hash. "Device ms" below and in the kernels
+   line ("ms", "plain_ms", "library_ms") is CUDA events around 20 calls
+   queued behind a spin kernel, so the kernels run back to back without
+   the host's gaps (the profiler's kernel times for a call that waits for
+   the card); "chained_ms" is CUDA events
+   around 20 chained calls, which also counts the host's gaps where the
+   wrapper's Python takes longer than the kernel.
 3. CTC kernels: forward and backward against the plain version at B=32,
    T' in {200, 800}, L in {64, 512}, V in {56, 1000, 32768}, ragged
    lengths, a dummy row (1 frame, no target) and, at T'=200 with L=512,
@@ -22,7 +34,9 @@ Phases; any failure raises and the script exits non-zero.
    the lanes of a label summed in another order, and a row whose alignment
    is impossible carries unscaled lane values that sum to hundreds (the
    loss's zero_infinity multiplies them by 0). Median CUDA-event times of
-   kernels and plain versions throughout.
+   kernels and plain versions throughout; at the training step's shape
+   (T'=200, L=64, V=56) also the kernels over 20 chained calls and
+   torch.nn.functional.ctc_loss with its gradient through autograd.
 4. SwiGLU: the port's A/B (python -m turkish_asr_torch.scripts.ab_swiglu,
    the fused SwiGLU FFN kernel against the matmul chain) at M in {6400,
    6401, 25600}, C=256, F=1024, then the kernel at every row tile against
@@ -49,12 +63,17 @@ Phases; any failure raises and the script exits non-zero.
 7. Serving: the trained .pt answers one /transcribe through ASRService;
    then the flagship model with seeded random weights, served by
    turkish_asr_torch.serve.server on 127.0.0.1 (/health, 1 s, 8 s, 24 s,
-   timestamps, a 3-file batch) with 8 forward-kernel launches per forward,
-   bf16 logits held against the plain path and fp32 on the card against
-   the CPU.
+   timestamps, a 3-file batch) with 8 forward-kernel launches per forward;
+   the 8 s input's bf16 logits held within bf16's own noise of the plain
+   path's and at 0.99 frame-argmax agreement, its fp32 logits within 1e-3
+   and 0.99 frame-argmax agreement of the plain path's, and fp32 on the
+   card against the CPU.
 
 The last three lines are the card, the kernels (launch counts from the
-training run, errors, times) and {"ok": true, "device": {...}}.
+training run, errors, chained and single-call times, bound_ms and
+bound_by from kernel_bounds, library_ms: the one torch call that computes
+the same function, or null where none does) and {"ok": true, "device":
+{...}}.
 """
 
 import json
@@ -76,10 +95,14 @@ import torch
 
 SR = 16000
 SWIGLU_SHAPES = dict(M=(6400, 6401, 25600), C=256, F=1024)
-KERNEL_SHAPES = dict(B=4, H=4, D=64, T=(26, 201, 601, 801), Kh=(1, 4))
 TOLERANCES = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}  # (out, lse)
 CTC_SHAPES = dict(B=32, T=(200, 800), L=(64, 512), V=(56, 1000, 32768))
-HEADLINE = dict(dtype=torch.bfloat16, Kh=1, T=201, rate=0.1)  # the training step's shape
+CTC_MAIN = dict(B=32, T=200, L=64, V=56)  # a training step's CTC shape
+CHAINED_CALLS = 20  # the calls between two CUDA events, as in ab_attention.py
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
+# bf16 tensor cores, fp32 outside them, device memory.
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
 TRAIN_EPOCHS = 5
 WORDS = ("merhaba", "evet", "hayır", "bir", "iki", "üç", "dört", "beş", "altı", "yedi",
          "sekiz", "dokuz", "on", "güneş", "deniz", "kitap")
@@ -97,6 +120,75 @@ def _median_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _times(fn, calls=CHAINED_CALLS):
+    """(device ms, chained CUDA-event ms) per call: device ms times the
+    calls queued behind a spin kernel, without the host's gaps between
+    launches (turkish_asr_torch/scripts/ab_attention.py)."""
+    from turkish_asr_torch.scripts.ab_attention import chained_ms, device_ms
+    return device_ms(fn, calls), chained_ms(fn, calls)
+
+
+def kernel_bounds(name, **shape):
+    """The least time the card could take for one call of a kernel's
+    function: the larger of its operations over the peak rate for their
+    type and its bytes over the memory rate, each input read once and each
+    output written once. Returns {"flops", "bytes", "bound_ms", "bound_by"}.
+
+    flash_attention_fwd / _bwd (B, H, Kh, T, D, dtype="bf16"): q (B, H, T, D)
+      and k, v (B, Kh, T, D) in dtype, mask (B, T) uint8; the forward writes
+      out (B, H, T, D) and lse, m, l (B, H, T) fp32 and does 4*B*H*T*T*D
+      flops (q k^T and p v); the backward reads g (B, H, T, D) and m, l,
+      delta (B, H, T) fp32, writes dq, dk, dv fp32 and does 10*B*H*T*T*D
+      flops (q k^T, g v^T, y^T g, ds^T q, ds k). bf16 inputs run on the
+      tensor cores (989 TFLOP/s); fp32 inputs are held to the fp32 rate.
+    dropout_mask (B, H, T): writes the (B, H, T, T) uint8 keep mask; the
+      hash is integer work the peak table has no rate for, so bytes only.
+    ctc_fwd / ctc_bwd (B, T, V, L), S = 2L + 1 lanes: the forward reads
+      log-probs (B, T, V) fp32, ext (B, S) int32, skip (B, S) uint8 and the
+      two (B,) int32 lengths, writes alpha (B, T, S) and nll (B,) fp32; the
+      backward also reads next_same (B, S) int32, leader (B, S) uint8,
+      alpha, nll and the (B,) cotangent and writes the (B, T, V) fp32
+      gradient. About 10 fp32 operations per lane and frame in the forward
+      (a three-way logaddexp) and 20 in the backward (beta and the
+      gradient), at the fp32 rate.
+    swiglu_fwd (M, C, F): x (M, C), w1 (C, 2F), w2 (F, C) bf16, b1 (2F,),
+      b2 (C,) fp32, y (M, C) bf16; 6*M*C*F flops on the tensor cores.
+    """
+    if name in ("flash_attention_fwd", "flash_attention_bwd"):
+        B, H, Kh, T, D = (shape[k] for k in ("B", "H", "Kh", "T", "D"))
+        dtype = shape.get("dtype", "bf16")
+        qkv = (B * H * T * D + 2 * B * Kh * T * D) * (2 if dtype == "bf16" else 4) + B * T
+        if name == "flash_attention_fwd":
+            flops, nbytes = 4 * B * H * T * T * D, qkv + 4 * (B * H * T * D + 3 * B * H * T)
+        else:
+            flops = 10 * B * H * T * T * D
+            nbytes = qkv + 4 * (2 * B * H * T * D + 3 * B * H * T + 2 * B * Kh * T * D)
+        peak = PEAK_FLOPS[dtype]
+    elif name == "dropout_mask":
+        B, H, T = shape["B"], shape["H"], shape["T"]
+        flops, nbytes, peak = 0, B * H * T * T, PEAK_FLOPS["fp32"]
+    elif name in ("ctc_fwd", "ctc_bwd"):
+        B, T, V, L = shape["B"], shape["T"], shape["V"], shape["L"]
+        S = 2 * L + 1
+        inputs = 4 * B * T * V + 5 * B * S + 8 * B
+        if name == "ctc_fwd":
+            flops, nbytes = 10 * B * T * S, inputs + 4 * B * T * S + 4 * B
+        else:
+            flops = 20 * B * T * S
+            nbytes = inputs + 5 * B * S + 4 * B * T * S + 8 * B + 4 * B * T * V
+        peak = PEAK_FLOPS["fp32"]
+    elif name == "swiglu_fwd":
+        M, C, F = shape["M"], shape["C"], shape["F"]
+        flops = 6 * M * C * F
+        nbytes = 2 * (M * C + C * 2 * F + F * C + M * C) + 4 * (2 * F + C)
+        peak = PEAK_FLOPS["bf16"]
+    else:
+        raise ValueError(f"no bound for kernel {name!r}")
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return {"flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
 def _counts():
@@ -142,45 +234,92 @@ def attention_phase():
     from turkish_asr_torch.ops._dropout import keep_mask_ref
     from turkish_asr_torch.ops._flash_attention import (
         flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
+    from turkish_asr_torch.scripts.ab_attention import MAIN_PATH, SWEEP, attention_inputs
 
     gen = torch.Generator().manual_seed(0)
-    B, H, D = KERNEL_SHAPES["B"], KERNEL_SHAPES["H"], KERNEL_SHAPES["D"]
+    B, H, D = SWEEP["B"], SWEEP["H"], SWEEP["D"]
     err = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
     times = {}
+
+    def check(dtype, Kh, T, rate, out, lse, grads, ref_out, ref_lse, ref_grads):
+        """(max |out - ref|, max |lse - ref|, grads' max error over their largest
+        plain element); raises where a tolerance is broken."""
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (out, lse) + tuple(grads)):
+            raise AssertionError(f"non-finite attention output at {dtype} Kh={Kh} T={T} "
+                                 f"rate={rate}")
+        err_o = (out - ref_out).abs().max().item()
+        err_l = (lse - ref_lse).abs().max().item()
+        err_g = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                    for a, b in zip(grads, ref_grads))
+        tol_o, tol_l = TOLERANCES[dtype]
+        if err_o > tol_o or err_l > tol_l or err_g > 1e-4:
+            raise AssertionError(
+                f"attention kernels disagree at {dtype} Kh={Kh} T={T} rate={rate}: "
+                f"out {err_o} (tol {tol_o}), lse {err_l} (tol {tol_l}), "
+                f"grads {err_g} (tol 1e-4 of the largest)")
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], err_o, err_l)
+        err["flash_attention_bwd"] = max(err["flash_attention_bwd"], max(
+            (a - b).abs().max().item() for a, b in zip(grads, ref_grads)))
+        return err_o, err_l, err_g
+
+    # The main path's two shapes: errors, then chained and single-call times
+    # of the kernels, their plain versions and torch's fused attention.
+    for where, shp in MAIN_PATH.items():
+        Bm, Hm, Km, T, Dm, rate = (shp[k] for k in ("B", "H", "Kh", "T", "D", "rate"))
+        q, k, v, g, mask = attention_inputs(Bm, Hm, Km, T, Dm, torch.bfloat16)
+        seed = 77
+        out, lse, m, l = fa._fwd(q, k, v, mask, rate, seed)
+        ref_out, ref_lse, _, _ = flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed)
+        delta = (g * out).sum(-1)
+        grads = fa._bwd(q, k, v, mask, m, l, delta, g, rate, seed)
+        ref_grads = flash_attention_bwd_ref(q, k, v, mask, m, l, delta, g, rate, seed)
+        err_o, err_l, err_g = check(torch.bfloat16, Km, T, rate, out, lse, grads, ref_out,
+                                    ref_lse, ref_grads)
+        fwd = lambda: fa._fwd(q, k, v, mask, rate, seed)  # noqa: E731
+        bwd = lambda: fa._bwd(q, k, v, mask, m, l, delta, g, rate, seed)  # noqa: E731
+        fwd_plain = lambda: flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed)  # noqa: E731
+        bwd_plain = lambda: flash_attention_bwd_ref(  # noqa: E731
+            q, k, v, mask, m, l, delta, g, rate, seed)
+        lib = _sdpa_yardstick(q, k, v, mask, g, rate)
+        row = {}
+        for kname, kernel, plain, library in (("flash_attention_fwd", fwd, fwd_plain, lib[0]),
+                                              ("flash_attention_bwd", bwd, bwd_plain, lib[1])):
+            (ms, chained), (plain_ms, plain_chained) = _times(kernel), _times(plain)
+            row[kname] = dict(ms=ms, chained_ms=chained, median_ms=_median_ms(kernel),
+                              plain_ms=plain_ms, plain_chained_ms=plain_chained,
+                              library_ms=library[0], library_chained_ms=library[1],
+                              **kernel_bounds(kname, B=Bm, H=Hm, Kh=Km, T=T, D=Dm))
+        times[where] = row
+        print(f"attention main path ({where}) bf16 B={Bm} H={Hm} Kh={Km} T'={T} D={Dm} "
+              f"rate={rate}: max|out-ref|={err_o:.3e} max|lse-ref|={err_l:.3e} grads rel "
+              f"{err_g:.3e}", flush=True)
+        for kname, r in row.items():
+            print(f"  {kname} (device ms; {CHAINED_CALLS} chained calls): kernel {r['ms']:.4f} "
+                  f"({r['chained_ms']:.4f}; single {r['median_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f} ({r['plain_chained_ms']:.4f}), torch SDPA "
+                  f"{r['library_ms']:.4f} ({r['library_chained_ms']:.4f}); bound "
+                  f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['flops'] / 1e9:.3f} GFLOP, "
+                  f"{r['bytes'] / 1e6:.3f} MB)", flush=True)
+
     for dtype in (torch.float32, torch.bfloat16):
-        for Kh in KERNEL_SHAPES["Kh"]:
-            for T in KERNEL_SHAPES["T"]:
+        for Kh in SWEEP["Kh"]:
+            for T in SWEEP["T"]:
                 q = torch.randn(B, H, T, D, generator=gen).to("cuda", dtype)
                 k = torch.randn(B, Kh, T, D, generator=gen).to("cuda", dtype)
                 v = torch.randn(B, Kh, T, D, generator=gen).to("cuda", dtype)
                 g = torch.randn(B, H, T, D, generator=gen).cuda()
                 lens = torch.tensor([T, (2 * T) // 3, 0, 1])
                 mask = (torch.arange(T)[None, :] < lens[:, None]).cuda()
-                for rate in (0.0, 0.1):
+                for rate in SWEEP["rate"]:
                     seed = 1000 + T
                     out, lse, m, l = fa._fwd(q, k, v, mask, rate, seed)
                     ref_out, ref_lse, _, _ = flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed)
                     delta = (g * out).sum(-1)
                     grads = fa._bwd(q, k, v, mask, m, l, delta, g, rate, seed)
                     ref_grads = flash_attention_bwd_ref(q, k, v, mask, m, l, delta, g, rate, seed)
-                    torch.cuda.synchronize()
-                    tensors = (out, lse) + tuple(grads)
-                    if not all(torch.isfinite(t).all() for t in tensors):
-                        raise AssertionError(f"non-finite attention output at {dtype} Kh={Kh} "
-                                             f"T={T} rate={rate}")
-                    err_o = (out - ref_out).abs().max().item()
-                    err_l = (lse - ref_lse).abs().max().item()
-                    err_g = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
-                                for a, b in zip(grads, ref_grads))
-                    abs_g = max((a - b).abs().max().item() for a, b in zip(grads, ref_grads))
-                    tol_o, tol_l = TOLERANCES[dtype]
-                    if err_o > tol_o or err_l > tol_l or err_g > 1e-4:
-                        raise AssertionError(
-                            f"attention kernels disagree at {dtype} Kh={Kh} T={T} rate={rate}: "
-                            f"out {err_o} (tol {tol_o}), lse {err_l} (tol {tol_l}), "
-                            f"grads {err_g} (tol 1e-4 of the largest)")
-                    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], err_o, err_l)
-                    err["flash_attention_bwd"] = max(err["flash_attention_bwd"], abs_g)
+                    err_o, err_l, err_g = check(dtype, Kh, T, rate, out, lse, grads, ref_out,
+                                                ref_lse, ref_grads)
                     fwd_ms = _median_ms(lambda: fa._fwd(q, k, v, mask, rate, seed))
                     fwd_plain = _median_ms(
                         lambda: flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed))
@@ -192,11 +331,8 @@ def attention_phase():
                           f"grads rel {err_g:.3e}; fwd kernel {fwd_ms:.4f} ms, plain "
                           f"{fwd_plain:.4f} ms; bwd kernel {bwd_ms:.4f} ms, plain "
                           f"{bwd_plain:.4f} ms", flush=True)
-                    if (dtype, Kh, T, rate) == tuple(HEADLINE.values()):
-                        times["flash_attention_fwd"] = (fwd_ms, fwd_plain)
-                        times["flash_attention_bwd"] = (bwd_ms, bwd_plain)
 
-    T = max(KERNEL_SHAPES["T"])
+    T = max(SWEEP["T"])
     keep = fa.dump_keep_mask(B, H, T, 0xC0FFEE, 0.1, "cuda")
     want = keep_mask_ref(0xC0FFEE, B, H, T, 0.1, "cuda")
     if not torch.equal(keep, want):
@@ -205,13 +341,49 @@ def attention_phase():
     share = keep.float().mean().item()
     if abs(share - 0.9) > 5 * math.sqrt(0.09 / keep.numel()):
         raise AssertionError(f"kept share {share} is not within 5 sigma of 0.9")
-    times["dropout_mask"] = (_median_ms(lambda: fa.dump_keep_mask(B, H, T, 7, 0.1, "cuda")),
-                             _median_ms(lambda: keep_mask_ref(7, B, H, T, 0.1, "cuda")))
+    dump = lambda: fa.dump_keep_mask(B, H, T, 7, 0.1, "cuda")  # noqa: E731
+    dump_plain = lambda: keep_mask_ref(7, B, H, T, 0.1, "cuda")  # noqa: E731
+    (ms, chained), (plain_ms, plain_chained) = _times(dump), _times(dump_plain)
+    times["dropout_mask"] = dict(ms=ms, chained_ms=chained, median_ms=_median_ms(dump),
+                                 plain_ms=plain_ms, plain_chained_ms=plain_chained,
+                                 library_ms=None, **kernel_bounds("dropout_mask", B=B, H=H, T=T))
     err["dropout_mask"] = 0.0
+    r = times["dropout_mask"]
     print(f"dropout dump B={B} H={H} T'={T}: bit-identical to the plain hash, kept share "
-          f"{share:.5f}; kernel {times['dropout_mask'][0]:.4f} ms, plain "
-          f"{times['dropout_mask'][1]:.4f} ms", flush=True)
+          f"{share:.5f}; device ms (chained): kernel {r['ms']:.4f} ({r['chained_ms']:.4f}; single "
+          f"{r['median_ms']:.4f}), plain {r['plain_ms']:.4f} ({r['plain_chained_ms']:.4f}); "
+          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
     return err, times
+
+
+def _sdpa_yardstick(q, k, v, mask, g, rate):
+    """((device ms, chained ms) of the forward, the same of the backward) of
+    torch's fused attention on the kernels' inputs: the library yardstick,
+    timed here and never called by the port. MQA k/v go in with
+    enable_gqa=True, or expanded to the query heads (a view) where this
+    torch's SDPA has no such keyword. Every row gets a valid key (SDPA
+    gives NaN for a row with none; only its time is used)."""
+    import torch.nn.functional as F
+    H = q.shape[1]
+    lib_mask = mask.clone()
+    lib_mask[:, 0] = True
+    attn_mask = lib_mask[:, None, None, :]
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def call():
+        try:
+            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask,
+                                                  dropout_p=rate, enable_gqa=True)
+        except TypeError:  # no enable_gqa keyword
+            return F.scaled_dot_product_attention(
+                qq, kk.expand(-1, H, -1, -1), vv.expand(-1, H, -1, -1), attn_mask=attn_mask,
+                dropout_p=rate)
+
+    with torch.no_grad():
+        fwd = _times(call)
+    out, g16 = call(), g.to(q.dtype)
+    bwd = _times(lambda: torch.autograd.grad(out, (qq, kk, vv), g16, retain_graph=True))
+    return fwd, bwd
 
 
 def ctc_phase():
@@ -260,19 +432,57 @@ def ctc_phase():
                       f"more labels than half the frames): nll rel {err_f:.3e}, grad "
                       f"{err_b:.3e}; fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms; "
                       f"bwd kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms", flush=True)
-                if (T, L, V) == (200, 64, 56):
-                    times["ctc_fwd"] = (fwd_ms, fwd_plain)
-                    times["ctc_bwd"] = (bwd_ms, bwd_plain)
+                if dict(B=B, T=T, L=L, V=V) == CTC_MAIN:
+                    lib_fwd, lib_bwd = _ctc_yardstick(lp, tg, il, tl, cot)
+                    for name, kernel, plain_fn, median, lib in (
+                            ("ctc_fwd", lambda: ctc._forward(lp, ext, skip, il, tl),
+                             lambda: ctc_fwd_ref(lp, ext, skip, il, tl), fwd_ms, lib_fwd),
+                            ("ctc_bwd", lambda: ctc._backward(lp, ext, skip, il, tl, alpha, nll,
+                                                              cot, 0),
+                             lambda: ctc_bwd_ref(lp, ext, skip, il, tl, ref_alpha, ref_nll, cot),
+                             bwd_ms, lib_bwd)):
+                        ms, chained = _times(kernel)
+                        # the plain recursion launches thousands of small kernels a call
+                        plain_ms, plain_chained = _times(plain_fn, calls=2)
+                        times[name] = dict(ms=ms, chained_ms=chained, median_ms=median,
+                                           plain_ms=plain_ms, plain_chained_ms=plain_chained,
+                                           library_ms=lib[0], library_chained_ms=lib[1],
+                                           **kernel_bounds(name, **CTC_MAIN))
+                        r = times[name]
+                        print(f"  {name} (device ms; chained): kernel {r['ms']:.4f} "
+                              f"({r['chained_ms']:.4f}), plain {r['plain_ms']:.4f} "
+                              f"({r['plain_chained_ms']:.4f}), torch ctc_loss "
+                              f"{r['library_ms']:.4f} ({r['library_chained_ms']:.4f}); bound "
+                              f"{r['bound_ms']:.5f} ms by {r['bound_by']} "
+                              f"({r['bytes'] / 1e6:.3f} MB)", flush=True)
                 del lp, grad, ref_grad, alpha, ref_alpha
     return err, times
+
+
+def _ctc_yardstick(lp, targets, il, tl, cot):
+    """((device ms, chained ms) of torch.nn.functional.ctc_loss (reduction
+    none, zero_infinity), the same of its gradient through autograd) on the
+    kernels' inputs: the library yardstick, never called by the port."""
+    import torch.nn.functional as F
+    x = lp.detach().requires_grad_(True)
+
+    def call():
+        return F.ctc_loss(x.transpose(0, 1), targets, il, tl, blank=0, reduction="none",
+                          zero_infinity=True)
+
+    with torch.no_grad():
+        fwd = _times(call)
+    loss = call()
+    return fwd, _times(lambda: torch.autograd.grad(loss, x, cot, retain_graph=True))
 
 
 def swiglu_phase():
     """The port's SwiGLU A/B at each M (its kernel launches counted), then
     the kernel at every row tile against the fused plain version.
 
-    Returns (launches in the A/B runs, max abs error, (kernel, plain,
-    chain) median ms at the first M)."""
+    Returns (launches in the A/B runs, max abs error, the kernel's, the
+    fused plain version's and the chain's times and the bound at the first
+    M). No single torch call computes the fused FFN: library_ms is None."""
     from turkish_asr_torch.ops import swiglu as sw
     from turkish_asr_torch.ops._swiglu import swiglu_chain, swiglu_fused_ref
     from turkish_asr_torch.scripts import ab_swiglu
@@ -314,12 +524,18 @@ def swiglu_phase():
         kernel_ms = _median_ms(lambda: sw.swiglu(*args))
         plain_ms = _median_ms(lambda: swiglu_fused_ref(*args))
         chain_ms = _median_ms(lambda: swiglu_chain(*args))
-        times.setdefault("first", (kernel_ms, plain_ms, chain_ms))
+        if not times:
+            (ms, chained), (plain, plain_chained) = (_times(lambda: sw.swiglu(*args)),
+                                                     _times(lambda: swiglu_fused_ref(*args)))
+            times = dict(ms=ms, chained_ms=chained, median_ms=kernel_ms, plain_ms=plain,
+                         plain_chained_ms=plain_chained, library_ms=None,
+                         chain_ms=_times(lambda: swiglu_chain(*args))[0],
+                         **kernel_bounds("swiglu_fwd", M=M, C=C, F=F))
         print(f"swiglu M={M} C={C} F={F}: every row finite at tm {sw.ROW_TILES}, max|kernel - "
               f"plain| {err:.3e} (tol {tol:.3e}); kernel (tm={sw.DEFAULT_TILE}) "
               f"{kernel_ms:.4f} ms, fused plain {plain_ms:.4f} ms, chain {chain_ms:.4f} ms",
               flush=True)
-    return launches, err, times["first"]
+    return launches, err, times
 
 
 def _write_corpus(root, n):
@@ -599,25 +815,31 @@ def serving_phase(workdir):
     asr = service.asr
     waveform = _tone(8, 2)
     served, n = asr._forward_padded(waveform)
+    asr.compute_dtype = torch.float32
+    served_fp32, _ = asr._forward_padded(waveform)
     with mock.patch.object(attention, "flash_attention", flash_attention_fwd_ref):
-        plain, _ = asr._forward_padded(waveform)
-        asr.compute_dtype = torch.float32
         plain_fp32, _ = asr._forward_padded(waveform)
         asr.compute_dtype = torch.bfloat16
-    served, plain, plain_fp32 = served[:n], plain[:n], plain_fp32[:n]
+        plain, _ = asr._forward_padded(waveform)
+    served, plain, served_fp32, plain_fp32 = (x[:n] for x in (served, plain, served_fp32,
+                                                               plain_fp32))
     if not (np.isfinite(served).all() and served.shape == (n, cfg.n_classes)):
         raise AssertionError(f"served logits: shape {served.shape}, finite "
                              f"{np.isfinite(served).all()}")
     diff = float(np.abs(served - plain).max())
     bf16_noise = float(np.abs(plain - plain_fp32).max())
     agree = float((served.argmax(-1) == plain.argmax(-1)).mean())
+    diff32 = float(np.abs(served_fp32 - plain_fp32).max())
+    agree32 = float((served_fp32.argmax(-1) == plain_fp32.argmax(-1)).mean())
     print(f"8 s input, {n} frames: max|kernel - plain| = {diff:.4e} (bf16 logits); "
-          f"max|plain bf16 - plain fp32| = {bf16_noise:.4e}; argmax agreement {agree:.4f}",
-          flush=True)
+          f"max|plain bf16 - plain fp32| = {bf16_noise:.4e}; argmax agreement {agree:.4f} "
+          f"(bf16), {agree32:.4f} (fp32, max|kernel - plain| = {diff32:.4e})", flush=True)
     # Kernel and plain path differ only in summation order; the served
     # logits may differ from the plain path's by no more than bf16 itself
-    # moves them from fp32.
-    if diff > bf16_noise or agree < 0.99:
+    # moves them from fp32, and their frame argmaxes agree at 0.99. The fp32
+    # forward is held to the same agreement and to the 1e-3 of the
+    # card-vs-CPU check below.
+    if diff > bf16_noise or agree < 0.99 or agree32 < 0.99 or diff32 > 1e-3:
         raise AssertionError("served logits disagree with the plain path")
 
     # fp32 on the card (kernel) vs fp32 on the CPU (plain path), 1 s input.
@@ -659,8 +881,7 @@ def main():
     ctc_err, ctc_times = ctc_phase()
     err.update(ctc_err)
     times.update(ctc_times)
-    swiglu_launches, err["swiglu_fwd"], swiglu_times = swiglu_phase()
-    times["swiglu_fwd"] = swiglu_times[:2]
+    swiglu_launches, err["swiglu_fwd"], times["swiglu_fwd"] = swiglu_phase()
     with tempfile.TemporaryDirectory() as workdir:
         counts, pt = train_phase(workdir)
         gradient_check()
@@ -689,19 +910,26 @@ def main():
             "dropout_mask": ["turkish_asr_tpu/ops/_flash_attention_impl.py:189"],
             "swiglu_fwd": ["scripts/ab_swiglu.py:56"]}
     counts["swiglu_fwd"] = swiglu_launches
+    # Each kernel's times at its main-path shape (the attention kernels at
+    # the training step's; the forward also at the long served bucket's).
+    times["flash_attention_fwd"] = times["train"]["flash_attention_fwd"]
+    times["flash_attention_bwd"] = times["train"]["flash_attention_bwd"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "chained_ms")
     kernels = []
     for name, (tpu, source) in replaces.items():
+        t = times[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": tpu,
-                 "launches": counts[name], "max_abs_err": err[name], "ms": times[name][0],
-                 "plain_ms": times[name][1]}
+                 "launches": counts[name], "max_abs_err": err[name],
+                 **{k: t[k] for k in keys}, "median_ms": t["median_ms"]}
         if name in also:
             entry["also_replaces"] = also[name]
         if name == "dropout_mask":
             entry["on_main_path"] = False  # a test helper, as the TPU's dump_keep_mask
         if name == "flash_attention_fwd":
             entry["serving_launches"] = serving_launches
+            entry["serving"] = {k: times["serve"][name][k] for k in keys}
         if name == "swiglu_fwd":
-            entry.update(chain_ms=swiglu_times[2], on_main_path=False,
+            entry.update(chain_ms=t["chain_ms"], on_main_path=False,
                          path="python -m turkish_asr_torch.scripts.ab_swiglu")
         kernels.append(entry)
     print(card)

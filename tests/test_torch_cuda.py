@@ -8,9 +8,11 @@ machine has none), so on the card it runs without the repo's conftest:
 Tolerances as chip_smoke.py states them: fp32 inputs 1e-4 absolute on
 out and lse; bf16 inputs 2e-2 on out (both sides round the normalized p
 to bf16, with row sums in another order) and 1e-3 on lse. The backward
-kernels rebuild the forward's p bit for bit and run fp32 math on widened
-inputs, as the plain version does, so dq, dk, dv agree within 1e-4 of
-the largest gradient for both input dtypes. The CTC kernels run the plain
+kernels rebuild the forward's p bit for bit and carry the fp32 operands
+(g, ds, y, and q, k, v in fp32) through the bf16 tensor cores as hi + lo
+pairs, so dq, dk, dv agree within 1e-4 of the largest gradient for both
+input dtypes; the dk/dv partial sums are added in a fixed order, so two
+calls agree bit for bit. The CTC kernels run the plain
 version's fp32 recursion with the card's own exp/log1p: losses within
 1e-5 relative, gradients within 1e-5 absolute (lane sums in another
 order). The dump kernel is bit-identical to the plain hash. The SwiGLU
@@ -59,15 +61,29 @@ def _inputs(B, H, Kh, T, D, lengths, dtype, device, seed=0):
     return q, k, v, mask
 
 
+def _lengths(B, T):
+    """A full row, a half row, an empty row, then seeded lengths in [1, T]."""
+    rest = np.random.default_rng(B * 1000 + T).integers(1, T + 1, max(0, B - 3)).tolist()
+    return ([T, T // 2, 0] + rest)[:B]
+
+
+# (B, Kh, T, D): ragged small shapes, D = 40 and 128, and the main path's
+# two shapes, training (B=32, T'=200) and the long served bucket (B=16 x
+# 24 s, T'=601), both MQA at D=64.
+ATTENTION_SHAPES = [(3, 1, 201, 64), (3, 4, 37, 64), (3, 1, 70, 128), (3, 2, 9, 40),
+                    (32, 1, 200, 64), (16, 1, 601, 64)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("Kh,T,D", [(1, 201, 64), (4, 37, 64), (1, 70, 128), (2, 9, 40)])
-def test_kernel_matches_plain_version(cuda, dtype, atol, Kh, T, D):
+@pytest.mark.parametrize("B,Kh,T,D", ATTENTION_SHAPES)
+def test_kernel_matches_plain_version(cuda, dtype, atol, B, Kh, T, D, rate):
     H = 4 if Kh != 2 else 2
-    q, k, v, mask = _inputs(3, H, Kh, T, D, [T, T // 2, 0], dtype, cuda)
+    q, k, v, mask = _inputs(B, H, Kh, T, D, _lengths(B, T), dtype, cuda)
     before = flash_attention.launches
-    out, lse = flash_attention(q, k, v, mask)
-    want_out, want_lse = flash_attention_fwd_ref(q, k, v, mask)
+    out, lse = flash_attention(q, k, v, mask, rate, 7)
+    want_out, want_lse = flash_attention_fwd_ref(q, k, v, mask, rate, 7)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
@@ -142,11 +158,11 @@ def test_attention_gradients_reach_q_k_v_on_the_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Kh,T,D", [(1, 201, 64), (4, 37, 64), (1, 70, 128), (2, 9, 40)])
-def test_backward_kernel_matches_plain_version(cuda, dtype, Kh, T, D, rate):
+@pytest.mark.parametrize("B,Kh,T,D", ATTENTION_SHAPES)
+def test_backward_kernel_matches_plain_version(cuda, dtype, B, Kh, T, D, rate):
     H = 4 if Kh != 2 else 2
-    q, k, v, mask = _inputs(3, H, Kh, T, D, [T, T // 2, 0], dtype, cuda)
-    g = torch.randn(3, H, T, D, generator=torch.Generator().manual_seed(5)).to(cuda)
+    q, k, v, mask = _inputs(B, H, Kh, T, D, _lengths(B, T), dtype, cuda)
+    g = torch.randn(B, H, T, D, generator=torch.Generator().manual_seed(5)).to(cuda)
     out, lse, m, l = fa_ops._fwd(q, k, v, mask, rate, 11)
     want = flash_attention_fwd_stats_ref(q, k, v, mask, rate, 11)
     torch.testing.assert_close(out, want[0], rtol=0, atol=1e-4 if dtype == torch.float32 else 2e-2)
@@ -159,6 +175,56 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, Kh, T, D, rate):
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(1.0, b.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Kh,T,rate", [(4, 1, 801, 0.0), (4, 4, 801, 0.0), (32, 1, 200, 0.1)])
+def test_backward_kernel_is_deterministic(cuda, B, Kh, T, rate):
+    """Two backward calls on the same inputs give the same bits: the dk/dv
+    chunks are summed in a fixed order, with no atomics (MQA at B=4, T'=801
+    takes five chunks, at B=32, T'=200 two)."""
+    q, k, v, mask = _inputs(B, 4, Kh, T, 64, _lengths(B, T), torch.bfloat16, cuda)
+    g = torch.randn(B, 4, T, 64, generator=torch.Generator().manual_seed(5)).to(cuda)
+    _, _, m, l = fa_ops._fwd(q, k, v, mask, rate, 3)
+    delta = torch.randn(B, 4, T, generator=torch.Generator().manual_seed(6)).to(cuda)
+    first = fa_ops._bwd(q, k, v, mask, m, l, delta, g, rate, 3)
+    second = fa_ops._bwd(q, k, v, mask, m, l, delta, g, rate, 3)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("slots", [132, 264, 528])
+@pytest.mark.parametrize("B,H,Kh,T", [(4, 4, 1, 801), (4, 4, 4, 801), (32, 4, 1, 200),
+                                      (16, 4, 1, 601), (3, 2, 2, 9), (1, 4, 1, 1)])
+def test_dkdv_chunks_cover_the_rows(B, H, Kh, T, slots):
+    """The dk/dv split (pure shape logic, runs without a card): chunks of a
+    whole number of 64-row tiles, none empty, covering every row."""
+    chunks, chunk_rows = fa_ops.dkdv_chunks(B, H, Kh, T, slots)
+    rows = H * T if Kh == 1 else T
+    assert chunk_rows % 64 == 0 and chunks >= 1
+    assert (chunks - 1) * chunk_rows < rows <= chunks * chunk_rows
+
+
+def test_dkdv_chunks_at_the_main_path_shapes():
+    """At 264 slots (the H100's 132 SMs x the 2 blocks an SM of the bf16
+    D=64 instance, test_dkdv_occupancy_of_the_main_path_instance): training
+    (B=32, T'=200, MQA) takes two chunks of 7 row tiles, one wave of 256
+    blocks; B=4, T'=801: five MQA chunks (260 blocks), and MHA none (208)."""
+    assert fa_ops.dkdv_chunks(32, 4, 1, 200, 264) == (2, 7 * 64)
+    assert fa_ops.dkdv_chunks(4, 4, 1, 801, 264) == (5, 11 * 64)
+    assert fa_ops.dkdv_chunks(4, 4, 4, 801, 264) == (1, 13 * 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0, 1])
+def test_dkdv_occupancy_of_the_main_path_instance(cuda, dropout):
+    """The bf16 D=64 dk/dv instance fits two blocks an SM (its 255
+    registers a thread and 92 KB of shared memory a block): the slots the
+    main-path splits above assume."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fa_ops._dkdv_slots(cuda.index or 0, 64, 1, dropout) == 2 * sms
+    assert 1 <= fa_ops._dkdv_slots(cuda.index or 0, 128, 0, dropout) <= 2 * sms
 
 
 @pytest.mark.cuda

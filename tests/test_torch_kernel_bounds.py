@@ -1,0 +1,78 @@
+"""chip_smoke.kernel_bounds against counts made by hand, and the attention
+timing script's shapes and refusal without a card (no card needed).
+
+The bound is the larger of operations over the H100's peak for their type
+(989 TFLOP/s bf16, 67 fp32) and bytes over 3.35 TB/s, each input byte read
+once and each output byte written once.
+"""
+
+import pytest
+
+import chip_smoke
+from turkish_asr_torch.scripts import ab_attention
+
+TRAIN = dict(B=32, H=4, Kh=1, T=200, D=64)
+SERVE = dict(B=16, H=4, Kh=1, T=601, D=64)
+
+
+@pytest.mark.parametrize("name,shape,flops,nbytes,bound_by", [
+    # q 3.2768 MB + k, v 1.6384 MB bf16, mask 6400 B; out 6.5536 MB and
+    # lse, m, l 0.3072 MB fp32: 11.78 MB, 4*B*H*T^2*D = 1.311 GFLOP.
+    ("flash_attention_fwd", TRAIN, 1_310_720_000, 11_782_400, "bytes"),
+    # + g 6.5536 MB, m, l, delta 0.3072 MB; dq 6.5536 MB, dk, dv 3.2768 MB:
+    # 21.6 MB, 10*B*H*T^2*D = 3.28 GFLOP.
+    ("flash_attention_bwd", TRAIN, 3_276_800_000, 21_612_800, "bytes"),
+    ("flash_attention_fwd", SERVE, 5_917_917_184, 17_703_056, "operations"),
+    ("flash_attention_bwd", SERVE, 14_794_792_960, 32_473_232, "operations"),
+    # the (4, 4, 801, 801) uint8 keep mask
+    ("dropout_mask", dict(B=4, H=4, T=801), 0, 10_265_616, "bytes"),
+    # S = 129: lp 1.4336 MB, ext 16512, skip 4128, lengths 256; alpha
+    # 3.3024 MB, nll 128; 10 ops per lane-frame
+    ("ctc_fwd", dict(B=32, T=200, L=64, V=56), 8_256_000, 4_757_024, "bytes"),
+    # + next_same 16512, leader 4128, alpha, nll, cot; grad 1.4336 MB
+    ("ctc_bwd", dict(B=32, T=200, L=64, V=56), 16_512_000, 6_211_392, "bytes"),
+    # x 3.2768 MB, w1 1.048576 MB, w2 0.524288 MB, b1 8192, b2 1024, y
+    # 3.2768 MB; 6*M*C*F
+    ("swiglu_fwd", dict(M=6400, C=256, F=1024), 10_066_329_600, 8_135_680, "operations"),
+])
+def test_kernel_bounds_match_the_hand_counts(name, shape, flops, nbytes, bound_by):
+    got = chip_smoke.kernel_bounds(name, **shape)
+    assert (got["flops"], got["bytes"], got["bound_by"]) == (flops, nbytes, bound_by)
+    peak = 67e12 if name.startswith(("ctc", "dropout")) else 989e12
+    assert got["bound_ms"] == pytest.approx(1e3 * max(flops / peak, nbytes / 3.35e12), rel=1e-12)
+
+
+def test_attention_bounds_in_microseconds():
+    """The training step's forward and backward are bound by their bytes
+    (3.52 and 6.45 us); the served forward by its flops (5.98 us)."""
+    assert chip_smoke.kernel_bounds("flash_attention_fwd", **TRAIN)["bound_ms"] == \
+        pytest.approx(3.517e-3, abs=1e-6)
+    assert chip_smoke.kernel_bounds("flash_attention_bwd", **TRAIN)["bound_ms"] == \
+        pytest.approx(6.452e-3, abs=1e-6)
+    assert chip_smoke.kernel_bounds("flash_attention_fwd", **SERVE)["bound_ms"] == \
+        pytest.approx(5.984e-3, abs=1e-6)
+
+
+def test_fp32_attention_inputs_are_held_to_the_fp32_rate():
+    got = chip_smoke.kernel_bounds("flash_attention_fwd", dtype="fp32", **SERVE)
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(1e3 * 5_917_917_184 / 67e12)
+
+
+def test_unknown_kernel_is_refused():
+    with pytest.raises(ValueError, match="no bound"):
+        chip_smoke.kernel_bounds("softmax", B=1)
+
+
+def test_ab_attention_shapes_cover_the_attention_phase_and_the_main_path():
+    labels = [label for label, _ in ab_attention._shapes()]
+    assert len(labels) == 2 * 2 * 4 * 2 + 2
+    shapes = dict(ab_attention._shapes())
+    assert shapes["main path train: bf16 B=32 Kh=1 T'=200 rate=0.1"]["B"] == 32
+
+
+def test_ab_attention_needs_a_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        ab_attention.main([])

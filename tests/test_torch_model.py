@@ -146,3 +146,20 @@ def test_seeded_init_is_reproducible_and_bounded():
     bound = 1.0 / np.sqrt(CFG["d_model"] * 4)  # fan_in of ff1.linear2
     w = a["blocks.0.ff1.linear2.weight"]
     assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
+
+
+def test_a_served_forward_then_training_in_one_process():
+    """A forward under torch.inference_mode (as the server runs it) first,
+    then a training backward at the same length: the cached RoPE tables
+    must be normal tensors, or autograd refuses to save them."""
+    from turkish_asr_torch.models import attention
+    attention.rope_cos_sin.cache_clear()
+    cfg = ModelConfig(**CFG)
+    model = init_model(cfg, torch.Generator().manual_seed(4))
+    feats = torch.randn(2, 131, 80, generator=torch.Generator().manual_seed(5))
+    lengths = torch.tensor([131, 90])
+    with torch.inference_mode():
+        model(feats, lengths, torch.float32)
+    logits, _ = model(feats, lengths, torch.float32, train=True, seed=1)
+    logits.square().mean().backward()
+    assert all(p.grad is not None for p in model.parameters() if p.requires_grad)

@@ -45,6 +45,7 @@ SLICE_MODULES = [
     "turkish_asr_torch.ops.swiglu",
     "turkish_asr_torch.scripts",
     "turkish_asr_torch.scripts.ab_swiglu",
+    "turkish_asr_torch.scripts.ab_attention",
 ]
 
 

@@ -29,10 +29,15 @@ def _rope_tables_np(seq_len, dim, base):
 
 @lru_cache(maxsize=32)
 def rope_cos_sin(seq_len, dim, dtype, device, base=10000.0):
-    """(seq_len, dim) cos and sin tables from fp64 host math, in ``dtype``."""
+    """(seq_len, dim) cos and sin tables from fp64 host math, in ``dtype``.
+
+    Made outside inference mode even when a served forward asks first: the
+    cache hands the same tensors to training, whose backward cannot save
+    inference tensors."""
     cos, sin = _rope_tables_np(int(seq_len), int(dim), float(base))
-    return (torch.from_numpy(cos).to(device=device, dtype=dtype),
-            torch.from_numpy(sin).to(device=device, dtype=dtype))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(cos).to(device=device, dtype=dtype),
+                torch.from_numpy(sin).to(device=device, dtype=dtype))
 
 
 def rope_inv_freq(d_head):

@@ -9,7 +9,9 @@ sequence length, or raises for what they do not take. Both devices go
 through the same ``torch.autograd.Function``: its forward saves
 q, k, v, mask, out, the softmax's row max and sum, and the dropout seed;
 its backward takes delta = rowsum(g * out) in PyTorch, as the TPU package
-takes it outside its kernel, and runs the backward kernel.
+takes it outside its kernel, and runs the backward kernels. The backward's
+dk/dv kernel splits the query rows into chunks (``dkdv_chunks``) whose
+partial sums go to an fp32 scratch the wrapper allocates.
 
 Attention-weight dropout (training) is applied inside the kernels from a
 position hash (``_dropout.py``, ``csrc/dropout_hash.cuh``) keyed by
@@ -22,6 +24,7 @@ dump kernel's.
 """
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -36,6 +39,7 @@ BWD_SOURCES = ("flash_attention_bwd.cu",)
 DUMP_SOURCES = ("dropout_mask.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
+_entry_points = {}
 
 
 def _count(fn, attr="launches"):
@@ -43,29 +47,36 @@ def _count(fn, attr="launches"):
         setattr(fn, attr, getattr(fn, attr) + 1)
 
 
+def _entry_point(library, sources, symbol, argtypes):
+    """The C function ``symbol`` with its argtypes set, built and loaded at
+    first use and kept: a launch pays for no lookup or argtypes setup."""
+    fn = _entry_points.get(symbol)
+    if fn is None:
+        fn = getattr(load_library(library, sources), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _entry_points[symbol] = fn
+    return fn
+
+
 def load_kernel():
     """The forward kernel's C entry point, building the library at first use."""
-    fn = load_library("flash_attention_fwd", KERNEL_SOURCES).flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
-    return fn
+    return _entry_point("flash_attention_fwd", KERNEL_SOURCES, "flash_attention_fwd",
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
 
 
 def load_bwd_kernel():
     """The backward kernels' C entry point, building the library at first use."""
-    fn = load_library("flash_attention_bwd", BWD_SOURCES).flash_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
-    return fn
+    return _entry_point("flash_attention_bwd", BWD_SOURCES, "flash_attention_bwd",
+                        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+                        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
 
 
 def load_dump_kernel():
-    fn = load_library("dropout_mask", DUMP_SOURCES).dump_keep_mask
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2 + [ctypes.c_void_p]
-    return fn
+    return _entry_point("dropout_mask", DUMP_SOURCES, "dump_keep_mask",
+                        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2
+                        + [ctypes.c_void_p])
 
 
 def _check(q, k, v, mask):
@@ -118,6 +129,55 @@ def _dropout_args(rate, seed):
             1.0 / (1.0 - rate))
 
 
+DKDV_TILE = 64  # query rows (and keys) of the dk/dv kernel's tiles
+
+
+def dkdv_chunks(B, H, Kh, T, slots):
+    """(chunks, chunk_rows): how the backward's dk/dv kernel splits the
+    query rows of a kv head (H*T folded rows for MQA, T for MHA) among
+    blocks. Its grid is key tiles x chunks x B*Kh, of which the card holds
+    ``slots`` at once (SMs x blocks an SM, ``_dkdv_slots``); a block
+    stages its K/V tile, walks its chunk's row tiles and writes its dk/dv,
+    so the grid takes about waves x (row tiles a chunk + 1) tile-steps. The
+    split with the fewest of those wins, the fewer chunks on a tie (each
+    adds a partial dk/dv to sum).
+    chunk_rows is a multiple of DKDV_TILE; no chunk is empty."""
+    rows = H * T if Kh == 1 else T
+    row_tiles = -(-rows // DKDV_TILE)
+    base = -(-T // DKDV_TILE) * B * Kh
+    best = None
+    for want in range(1, row_tiles + 1):
+        per = -(-row_tiles // want)
+        chunks = -(-row_tiles // per)
+        cost = -(-base * chunks // slots) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, chunks, per * DKDV_TILE)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _dkdv_slots(index, D, dtype_code, dropout):
+    """dk/dv blocks card ``index`` holds at once for the kernel instance
+    that (D, dtype, dropout) launches: its SMs times the blocks an SM takes,
+    which the CUDA runtime works out from the instance's registers and
+    shared memory."""
+    fn = _entry_point("flash_attention_bwd", BWD_SOURCES, "flash_attention_bwd_dkdv_occupancy",
+                      [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(D, dtype_code, dropout, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"flash_attention_bwd_dkdv_occupancy failed with CUDA error {rc} "
+                           f"({blocks.value} blocks an SM)")
+    return blocks.value * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(t):
+    """t, or a copy of it if its data is not 16-byte aligned (the kernels
+    copy 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fwd(q, k, v, mask, rate, seed):
     """(out, lse, row_max, row_sum) from the kernel (CUDA) or its plain
     version (CPU)."""
@@ -126,9 +186,10 @@ def _fwd(q, k, v, mask, rate, seed):
     _check(q, k, v, mask)
     B, H, T, D = q.shape
     mask = _mask_u8(mask, B, T, q.device)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
-    lse, row_max, row_sum = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-                             for _ in range(3))
+    lse, row_max, row_sum = torch.empty((3, B, H, T), dtype=torch.float32,
+                                        device=q.device).unbind(0)
     fn = load_kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
@@ -150,16 +211,22 @@ def _bwd(q, k, v, mask, row_max, row_sum, delta, g, rate, seed):
     B, H, T, D = q.shape
     Kh = k.shape[1]
     mask = _mask_u8(mask, B, T, q.device)
-    g = g.float().contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    g = _aligned(g.float().contiguous())
     dq = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
-    dk, dv = (torch.empty((B, Kh, T, D), dtype=torch.float32, device=q.device)
-              for _ in range(2))
+    dk, dv = torch.empty((2, B, Kh, T, D), dtype=torch.float32, device=q.device).unbind(0)
+    dropout, seed, threshold, inv_keep = _dropout_args(rate, seed)
+    chunks, chunk_rows = dkdv_chunks(
+        B, H, Kh, T, _dkdv_slots(q.device.index, D, _DTYPE_CODE[q.dtype], dropout))
+    partial = (torch.empty((2, chunks, B, Kh, T, D), dtype=torch.float32, device=q.device)
+               if chunks > 1 else None)
     fn = load_bwd_kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), g.data_ptr(),
                 row_max.data_ptr(), row_sum.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, H, Kh, T, D, _DTYPE_CODE[q.dtype],
-                *_dropout_args(rate, seed), torch.cuda.current_stream(q.device).cuda_stream)
+                dk.data_ptr(), dv.data_ptr(), None if partial is None else partial.data_ptr(),
+                B, H, Kh, T, D, _DTYPE_CODE[q.dtype], dropout, chunks, chunk_rows, seed,
+                threshold, inv_keep, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed with CUDA error {rc}")
     _count(flash_attention, "launches_bwd")
