@@ -18,7 +18,9 @@ Phases; any failure raises and the script exits non-zero.
    pairs). At the main-path shapes the kernels, their plain versions and
    torch's scaled_dot_product_attention (forward, and its gradient through
    autograd) are timed over 20 chained calls, beside single-call medians
-   and each kernel's bound (kernel_bounds). The dropout dump kernel must be
+   and each kernel's bound (kernel_bounds); so is the MHA shape with no
+   main-path launches (B=4, Kh=4, T'=801, rate 0, bf16, the A/B's), beside
+   SDPA. The dropout dump kernel must be
    bit-identical to the plain hash. "Device ms" below and in the kernels
    line ("ms", "plain_ms", "library_ms") is CUDA events around 20 calls
    queued behind a spin kernel, so the kernels run back to back without
@@ -27,16 +29,23 @@ Phases; any failure raises and the script exits non-zero.
    around 20 chained calls, which also counts the host's gaps where the
    wrapper's Python takes longer than the kernel.
 3. CTC kernels: forward and backward against the plain version at B=32,
-   T' in {200, 800}, L in {64, 512}, V in {56, 1000, 32768}, ragged
-   lengths, a dummy row (1 frame, no target) and, at T'=200 with L=512,
-   impossible alignments. Tolerances: losses 1e-5 relative (+1e-4
-   absolute); gradients 1e-4 of 1 + |plain|: the same fp32 recursion, with
-   the lanes of a label summed in another order, and a row whose alignment
-   is impossible carries unscaled lane values that sum to hundreds (the
-   loss's zero_infinity multiplies them by 0). Median CUDA-event times of
-   kernels and plain versions throughout; at the training step's shape
-   (T'=200, L=64, V=56) also the kernels over 20 chained calls and
-   torch.nn.functional.ctc_loss with its gradient through autograd.
+   T' in {200, 800}, L in {64, 512}, V in {56, 1000, 32768}, and at the
+   kernels' edges (CTC_EDGES: S = 1055 and 1057 on either side of the
+   warp path's limit, T'=77 across 32-frame chunks, S = 8191 on the wide
+   path); int32 targets and lengths as the trainer gives them, ragged
+   lengths, a dummy row (1 frame, no target) and impossible alignments.
+   Tolerances: losses 1e-5 relative (+1e-4 absolute); gradients 1e-4 of
+   1 + |plain|: the same fp32 recursion, with the lanes of a label summed
+   in another order, and a row whose alignment is impossible carries
+   unscaled lane values that sum to hundreds (the loss's zero_infinity
+   multiplies them by 0). Median CUDA-event times of kernels and plain
+   versions throughout; at the training step's shape (T'=200, L=64, V=56)
+   two backward calls must be bit-identical, and the wrappers are timed
+   over 20 calls (device and chained), the kernels alone by the profiler
+   ("kernel_ms"), beside torch.nn.functional.ctc_loss with its gradient
+   through autograd; the device kernels one ctc_loss forward and one
+   backward launch are printed. The kernels' branch-free log1p must equal
+   the math library's log1pf bit for bit on every float in [0, 1].
 4. SwiGLU: the port's A/B (python -m turkish_asr_torch.scripts.ab_swiglu,
    the fused SwiGLU FFN kernel against the matmul chain) at M in {6400,
    6401, 25600}, C=256, F=1024, then the kernel at every row tile against
@@ -72,7 +81,8 @@ Phases; any failure raises and the script exits non-zero.
 The last three lines are the card, the kernels (launch counts from the
 training run, errors, chained and single-call times, bound_ms and
 bound_by from kernel_bounds, library_ms: the one torch call that computes
-the same function, or null where none does) and {"ok": true, "device":
+the same function, or null where none does; kernel_ms for the CTC
+kernels; the MHA shape's times under "mha") and {"ok": true, "device":
 {...}}.
 """
 
@@ -98,6 +108,10 @@ SWIGLU_SHAPES = dict(M=(6400, 6401, 25600), C=256, F=1024)
 TOLERANCES = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}  # (out, lse)
 CTC_SHAPES = dict(B=32, T=(200, 800), L=(64, 512), V=(56, 1000, 32768))
 CTC_MAIN = dict(B=32, T=200, L=64, V=56)  # a training step's CTC shape
+# (T', L, V) at the kernels' edges: S = 1055 and 1057 on either side of the
+# warp path's 32 x 33 lanes, a T' that is no multiple of the 32-frame
+# chunk, and the widest target the wrappers take (S = 8191, 16 warps).
+CTC_EDGES = ((200, 527, 56), (200, 528, 56), (77, 64, 56), (40, 4095, 56))
 CHAINED_CALLS = 20  # the calls between two CUDA events, as in ab_attention.py
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
 # bf16 tensor cores, fp32 outside them, device memory.
@@ -146,13 +160,14 @@ def kernel_bounds(name, **shape):
     dropout_mask (B, H, T): writes the (B, H, T, T) uint8 keep mask; the
       hash is integer work the peak table has no rate for, so bytes only.
     ctc_fwd / ctc_bwd (B, T, V, L), S = 2L + 1 lanes: the forward reads
-      log-probs (B, T, V) fp32, ext (B, S) int32, skip (B, S) uint8 and the
-      two (B,) int32 lengths, writes alpha (B, T, S) and nll (B,) fp32; the
-      backward also reads next_same (B, S) int32, leader (B, S) uint8,
-      alpha, nll and the (B,) cotangent and writes the (B, T, V) fp32
-      gradient. About 10 fp32 operations per lane and frame in the forward
-      (a three-way logaddexp) and 20 in the backward (beta and the
-      gradient), at the fp32 rate.
+      log-probs (B, T, V) fp32, targets (B, L) int32 and the two (B,) int32
+      lengths (the kernels build the extended labels and skip flags from
+      the targets), writes alpha (B, T, S) and nll (B,) fp32; the backward
+      also reads alpha, nll and the (B,) cotangent and writes the
+      (B, T, V) fp32 gradient (it builds its label chains itself). About
+      10 fp32 operations per lane and frame in the forward (a three-way
+      logaddexp) and 20 in the backward (beta and the gradient), at the
+      fp32 rate.
     swiglu_fwd (M, C, F): x (M, C), w1 (C, 2F), w2 (F, C) bf16, b1 (2F,),
       b2 (C,) fp32, y (M, C) bf16; 6*M*C*F flops on the tensor cores.
     """
@@ -172,12 +187,12 @@ def kernel_bounds(name, **shape):
     elif name in ("ctc_fwd", "ctc_bwd"):
         B, T, V, L = shape["B"], shape["T"], shape["V"], shape["L"]
         S = 2 * L + 1
-        inputs = 4 * B * T * V + 5 * B * S + 8 * B
+        inputs = 4 * B * T * V + 4 * B * L + 8 * B
         if name == "ctc_fwd":
             flops, nbytes = 10 * B * T * S, inputs + 4 * B * T * S + 4 * B
         else:
             flops = 20 * B * T * S
-            nbytes = inputs + 5 * B * S + 4 * B * T * S + 8 * B + 4 * B * T * V
+            nbytes = inputs + 4 * B * T * S + 8 * B + 4 * B * T * V
         peak = PEAK_FLOPS["fp32"]
     elif name == "swiglu_fwd":
         M, C, F = shape["M"], shape["C"], shape["F"]
@@ -302,6 +317,31 @@ def attention_phase():
                   f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['flops'] / 1e9:.3f} GFLOP, "
                   f"{r['bytes'] / 1e6:.3f} MB)", flush=True)
 
+    # MHA (Kh = H) has no main-path shape: the A/B's B=4, T'=801, rate 0,
+    # bf16, timed as the main path's shapes are, beside torch's SDPA.
+    T = max(SWEEP["T"])
+    q, k, v, g, mask = attention_inputs(B, H, H, T, D, torch.bfloat16)
+    out, _, m, l = fa._fwd(q, k, v, mask, 0.0, 5)
+    delta = (g * out).sum(-1)
+    lib = _sdpa_yardstick(q, k, v, mask, g, 0.0)
+    times["mha"] = {}
+    for kname, kernel, plain, library in (
+            ("flash_attention_fwd", lambda: fa._fwd(q, k, v, mask, 0.0, 5),
+             lambda: flash_attention_fwd_stats_ref(q, k, v, mask, 0.0, 5), lib[0]),
+            ("flash_attention_bwd", lambda: fa._bwd(q, k, v, mask, m, l, delta, g, 0.0, 5),
+             lambda: flash_attention_bwd_ref(q, k, v, mask, m, l, delta, g, 0.0, 5), lib[1])):
+        (ms, chained), (plain_ms, plain_chained) = _times(kernel), _times(plain)
+        r = times["mha"][kname] = dict(
+            ms=ms, chained_ms=chained, plain_ms=plain_ms, plain_chained_ms=plain_chained,
+            library_ms=library[0], library_chained_ms=library[1],
+            **kernel_bounds(kname, B=B, H=H, Kh=H, T=T, D=D))
+        print(f"attention MHA bf16 B={B} H={H} Kh={H} T'={T} D={D} rate=0 {kname} (device ms; "
+              f"chained): kernel {r['ms']:.4f} ({r['chained_ms']:.4f}), plain {r['plain_ms']:.4f} "
+              f"({r['plain_chained_ms']:.4f}), torch SDPA {r['library_ms']:.4f} "
+              f"({r['library_chained_ms']:.4f}); bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}", flush=True)
+    del q, k, v, g, mask, out
+
     for dtype in (torch.float32, torch.bfloat16):
         for Kh in SWEEP["Kh"]:
             for T in SWEEP["T"]:
@@ -389,73 +429,87 @@ def _sdpa_yardstick(q, k, v, mask, g, rate):
 def ctc_phase():
     from turkish_asr_torch.ops import ctc
     from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref, ctc_topology
+    from turkish_asr_torch.scripts.ab_ctc import calls_of, ctc_inputs, kernel_stats
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     B = CTC_SHAPES["B"]
     err = {"ctc_fwd": 0.0, "ctc_bwd": 0.0}
     times = {}
-    for T in CTC_SHAPES["T"]:
-        for L in CTC_SHAPES["L"]:
-            for V in CTC_SHAPES["V"]:
-                lp = torch.log_softmax(torch.randn(B, T, V, device="cuda", generator=gen), -1)
-                tg = torch.randint(1, V, (B, L), device="cuda", generator=gen)
-                il = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=gen)
-                tl = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
-                il[-1], tl[-1] = 1, 0  # collate's dummy row
-                cot = torch.rand(B, device="cuda", generator=gen)
-                ext, skip = ctc_topology(tg, 0)
-                nll, alpha = ctc._forward(lp, ext, skip, il, tl)
-                grad = ctc._backward(lp, ext, skip, il, tl, alpha, nll, cot, 0)
-                ref_nll, ref_alpha = ctc_fwd_ref(lp, ext, skip, il, tl)
-                ref_grad = ctc_bwd_ref(lp, ext, skip, il, tl, ref_alpha, ref_nll, cot)
-                torch.cuda.synchronize()
-                if not (torch.isfinite(nll).all() and torch.isfinite(grad).all()):
-                    raise AssertionError(f"non-finite CTC output at T={T} L={L} V={V}")
-                err_f = ((nll - ref_nll).abs() / (1.0 + ref_nll.abs())).max().item()
-                err_b = ((grad - ref_grad).abs() / (1.0 + ref_grad.abs())).max().item()
-                if ((nll - ref_nll).abs() > 1e-5 * ref_nll.abs() + 1e-4).any() or err_b > 1e-4:
-                    raise AssertionError(f"CTC kernels disagree at T={T} L={L} V={V}: "
-                                         f"nll {err_f} (tol 1e-5 rel + 1e-4), grad {err_b} "
-                                         f"(tol 1e-4 of 1 + |plain|)")
-                feasible = 2 * tl <= il  # rows whose losses are not the 1e30 sentinel
-                err["ctc_fwd"] = max(err["ctc_fwd"],
-                                     (nll - ref_nll)[feasible].abs().max().item())
-                err["ctc_bwd"] = max(err["ctc_bwd"], (grad - ref_grad).abs().max().item())
-                fwd_ms = _median_ms(lambda: ctc._forward(lp, ext, skip, il, tl), reps=5, warmup=1)
-                bwd_ms = _median_ms(lambda: ctc._backward(lp, ext, skip, il, tl, alpha, nll, cot, 0),
-                                    reps=5, warmup=1)
-                fwd_plain = _median_ms(lambda: ctc_fwd_ref(lp, ext, skip, il, tl), reps=3, warmup=1)
-                bwd_plain = _median_ms(lambda: ctc_bwd_ref(lp, ext, skip, il, tl, ref_alpha,
-                                                           ref_nll, cot), reps=3, warmup=1)
-                impossible = int((2 * tl > il).sum().item())
-                print(f"ctc B={B} T'={T} L={L} V={V} (S={2 * L + 1}, {impossible} rows with "
-                      f"more labels than half the frames): nll rel {err_f:.3e}, grad "
-                      f"{err_b:.3e}; fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms; "
-                      f"bwd kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms", flush=True)
-                if dict(B=B, T=T, L=L, V=V) == CTC_MAIN:
-                    lib_fwd, lib_bwd = _ctc_yardstick(lp, tg, il, tl, cot)
-                    for name, kernel, plain_fn, median, lib in (
-                            ("ctc_fwd", lambda: ctc._forward(lp, ext, skip, il, tl),
-                             lambda: ctc_fwd_ref(lp, ext, skip, il, tl), fwd_ms, lib_fwd),
-                            ("ctc_bwd", lambda: ctc._backward(lp, ext, skip, il, tl, alpha, nll,
-                                                              cot, 0),
-                             lambda: ctc_bwd_ref(lp, ext, skip, il, tl, ref_alpha, ref_nll, cot),
-                             bwd_ms, lib_bwd)):
-                        ms, chained = _times(kernel)
-                        # the plain recursion launches thousands of small kernels a call
-                        plain_ms, plain_chained = _times(plain_fn, calls=2)
-                        times[name] = dict(ms=ms, chained_ms=chained, median_ms=median,
-                                           plain_ms=plain_ms, plain_chained_ms=plain_chained,
-                                           library_ms=lib[0], library_chained_ms=lib[1],
-                                           **kernel_bounds(name, **CTC_MAIN))
-                        r = times[name]
-                        print(f"  {name} (device ms; chained): kernel {r['ms']:.4f} "
-                              f"({r['chained_ms']:.4f}), plain {r['plain_ms']:.4f} "
-                              f"({r['plain_chained_ms']:.4f}), torch ctc_loss "
-                              f"{r['library_ms']:.4f} ({r['library_chained_ms']:.4f}); bound "
-                              f"{r['bound_ms']:.5f} ms by {r['bound_by']} "
-                              f"({r['bytes'] / 1e6:.3f} MB)", flush=True)
-                del lp, grad, ref_grad, alpha, ref_alpha
+    shapes = [(T, L, V) for T in CTC_SHAPES["T"] for L in CTC_SHAPES["L"]
+              for V in CTC_SHAPES["V"]] + list(CTC_EDGES)
+    for T, L, V in shapes:
+        lp, tg, il, tl, cot = ctc_inputs(B, T, L, V)
+        ext, skip = ctc_topology(tg, 0)
+        nll, alpha = ctc._forward(lp, tg, il, tl, 0)
+        grad = ctc._backward(lp, tg, il, tl, alpha, nll, cot, 0)
+        ref_nll, ref_alpha = ctc_fwd_ref(lp, ext, skip, il, tl)
+        ref_grad = ctc_bwd_ref(lp, ext, skip, il, tl, ref_alpha, ref_nll, cot)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(nll).all() and torch.isfinite(grad).all()):
+            raise AssertionError(f"non-finite CTC output at T={T} L={L} V={V}")
+        err_f = ((nll - ref_nll).abs() / (1.0 + ref_nll.abs())).max().item()
+        err_b = ((grad - ref_grad).abs() / (1.0 + ref_grad.abs())).max().item()
+        if ((nll - ref_nll).abs() > 1e-5 * ref_nll.abs() + 1e-4).any() or err_b > 1e-4:
+            raise AssertionError(f"CTC kernels disagree at T={T} L={L} V={V}: "
+                                 f"nll {err_f} (tol 1e-5 rel + 1e-4), grad {err_b} "
+                                 f"(tol 1e-4 of 1 + |plain|)")
+        feasible = 2 * tl <= il  # rows whose losses are not the 1e30 sentinel
+        if feasible.any():
+            err["ctc_fwd"] = max(err["ctc_fwd"], (nll - ref_nll)[feasible].abs().max().item())
+        err["ctc_bwd"] = max(err["ctc_bwd"], (grad - ref_grad).abs().max().item())
+        fwd = lambda: ctc._forward(lp, tg, il, tl, 0)  # noqa: E731
+        bwd = lambda: ctc._backward(lp, tg, il, tl, alpha, nll, cot, 0)  # noqa: E731
+        fwd_plain = lambda: ctc_fwd_ref(lp, ext, skip, il, tl)  # noqa: E731
+        bwd_plain = lambda: ctc_bwd_ref(lp, ext, skip, il, tl, ref_alpha, ref_nll, cot)  # noqa: E731
+        fwd_ms = _median_ms(fwd, reps=5, warmup=1)
+        bwd_ms = _median_ms(bwd, reps=5, warmup=1)
+        fwd_plain_ms = _median_ms(fwd_plain, reps=3, warmup=1)
+        bwd_plain_ms = _median_ms(bwd_plain, reps=3, warmup=1)
+        plans = {k: tuple(ctc.ctc_plan(k, 2 * L + 1, T)[:3]) for k in ("fwd", "bwd")}
+        impossible = int((2 * tl > il).sum().item())
+        print(f"ctc B={B} T'={T} L={L} V={V} (S={2 * L + 1}, {impossible} rows with more "
+              f"labels than half the frames; plan (warps, lanes, chunk) {plans}): nll rel "
+              f"{err_f:.3e}, grad {err_b:.3e}; fwd kernel {fwd_ms:.4f} ms, plain "
+              f"{fwd_plain_ms:.4f} ms; bwd kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms",
+              flush=True)
+        if dict(B=B, T=T, L=L, V=V) == CTC_MAIN:
+            first, second = ctc._backward(lp, tg, il, tl, alpha, nll, cot, 0), bwd()
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                raise AssertionError("two CTC backward calls differ")
+            lib_fwd, lib_bwd = _ctc_yardstick(lp, tg, il, tl, cot)
+            loss_fwd, loss_bwd = calls_of(ctc.CTCNegLogLikelihood, lp, tg, il, tl, cot)
+            for name, kernel, plain_fn, median, lib, whole in (
+                    ("ctc_fwd", fwd, fwd_plain, fwd_ms, lib_fwd, loss_fwd),
+                    ("ctc_bwd", bwd, bwd_plain, bwd_ms, lib_bwd, loss_bwd)):
+                ms, chained = _times(kernel)
+                _, kernel_ms, _ = kernel_stats(kernel)
+                launches, _, _ = kernel_stats(whole)
+                # the plain recursion launches thousands of small kernels a call
+                plain_ms, plain_chained = _times(plain_fn, calls=2)
+                times[name] = dict(ms=ms, chained_ms=chained, median_ms=median,
+                                   kernel_ms=kernel_ms, device_kernels_per_call=launches,
+                                   plain_ms=plain_ms, plain_chained_ms=plain_chained,
+                                   library_ms=lib[0], library_chained_ms=lib[1],
+                                   **kernel_bounds(name, **CTC_MAIN))
+                r = times[name]
+                print(f"  {name} (device ms; chained): wrapper {r['ms']:.4f} "
+                      f"({r['chained_ms']:.4f}), the kernel alone {r['kernel_ms']:.4f} "
+                      f"(profiler), plain {r['plain_ms']:.4f} ({r['plain_chained_ms']:.4f}), "
+                      f"torch ctc_loss {r['library_ms']:.4f} ({r['library_chained_ms']:.4f}); "
+                      f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+                      f"({r['bytes'] / 1e6:.3f} MB)", flush=True)
+            print(f"device kernels one ctc_loss forward launches: "
+                  f"{times['ctc_fwd']['device_kernels_per_call']:.0f}, one backward: "
+                  f"{times['ctc_bwd']['device_kernels_per_call']:.0f} (the parent tree's "
+                  f"in ab_ctc.py's output)", flush=True)
+        del lp, grad, ref_grad, alpha, ref_alpha
+        torch.cuda.empty_cache()
+    mismatches = ctc.log1p_unit_mismatches()
+    if mismatches:
+        raise AssertionError(f"the CTC kernels' log1p differs from log1pf at {mismatches} floats "
+                             f"in [0, 1] or NaNs")
+    print("the CTC kernels' branch-free log1p equals log1pf bit for bit on every float in "
+          "[0, 1] and every NaN", flush=True)
     return err, times
 
 
@@ -626,7 +680,7 @@ def gradient_check():
     """One fp32 train step, kernels against plain versions, same seeds."""
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
     from turkish_asr_torch.ops import ctc, flash_attention as fa
-    from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref
+    from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref, ctc_topology
     from turkish_asr_torch.ops._flash_attention import (
         flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
     from turkish_asr_torch.train.trainer import Trainer
@@ -656,8 +710,10 @@ def gradient_check():
     loss_k, grads_k, bn_k = step()
     with mock.patch.object(fa, "_fwd", flash_attention_fwd_stats_ref), \
             mock.patch.object(fa, "_bwd", flash_attention_bwd_ref), \
-            mock.patch.object(ctc, "_forward", ctc_fwd_ref), \
-            mock.patch.object(ctc, "_backward", lambda *a: ctc_bwd_ref(*a[:-1])):
+            mock.patch.object(ctc, "_forward", lambda lp, tg, il, tl, blank: ctc_fwd_ref(
+                lp, *ctc_topology(tg, blank), il, tl)), \
+            mock.patch.object(ctc, "_backward", lambda lp, tg, il, tl, alpha, nll, cot, blank:
+                              ctc_bwd_ref(lp, *ctc_topology(tg, blank), il, tl, alpha, nll, cot)):
         before = _counts()
         loss_p, grads_p, bn_p = step()
         if _counts() != before:
@@ -925,9 +981,14 @@ def main():
             entry["also_replaces"] = also[name]
         if name == "dropout_mask":
             entry["on_main_path"] = False  # a test helper, as the TPU's dump_keep_mask
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            entry["mha"] = {k: times["mha"][name][k] for k in keys}
         if name == "flash_attention_fwd":
             entry["serving_launches"] = serving_launches
             entry["serving"] = {k: times["serve"][name][k] for k in keys}
+        if name in ("ctc_fwd", "ctc_bwd"):
+            entry.update(kernel_ms=t["kernel_ms"],
+                         device_kernels_per_call=t["device_kernels_per_call"])
         if name == "swiglu_fwd":
             entry.update(chain_ms=t["chain_ms"], on_main_path=False,
                          path="python -m turkish_asr_torch.scripts.ab_swiglu")

@@ -15,7 +15,10 @@ input dtypes; the dk/dv partial sums are added in a fixed order, so two
 calls agree bit for bit. The CTC kernels run the plain
 version's fp32 recursion with the card's own exp/log1p: losses within
 1e-5 relative, gradients within 1e-5 absolute (lane sums in another
-order). The dump kernel is bit-identical to the plain hash. The SwiGLU
+order) on the small cases, and chip_smoke.py's tolerances (nll 1e-5
+relative + 1e-4, gradients 1e-4 of 1 + |plain|) at the path edges, where
+impossible rows sum unscaled lane values to hundreds; two backward calls
+agree bit for bit. The dump kernel is bit-identical to the plain hash. The SwiGLU
 kernel is held within 2^-7 max|plain| of the fused plain version (exact
 bf16 products summed in fp32 in other orders, so g can round one bf16 ulp
 apart).
@@ -257,16 +260,154 @@ def test_ctc_kernels_match_plain_version(cuda, B, T, V, L):
     lp, tg, il, tl = _ctc_case(B, T, V, L, cuda)
     ext, skip = ctc_topology(tg, 0)
     before = (ctc_loss.launches_fwd, ctc_loss.launches_bwd)
-    nll, alpha = ctc_ops._forward(lp, ext, skip, il, tl)
+    nll, alpha = ctc_ops._forward(lp, tg, il, tl, 0)
     want_nll, want_alpha = ctc_fwd_ref(lp, ext, skip, il, tl)
     torch.testing.assert_close(nll, want_nll, rtol=1e-5, atol=1e-5)
     cot = torch.rand(B, generator=torch.Generator().manual_seed(2)).to(cuda)
-    grad = ctc_ops._backward(lp, ext, skip, il, tl, alpha, nll, cot, 0)
+    grad = ctc_ops._backward(lp, tg, il, tl, alpha, nll, cot, 0)
     want = ctc_bwd_ref(lp, ext, skip, il, tl, want_alpha, want_nll, cot)
     torch.cuda.synchronize()
     assert (ctc_loss.launches_fwd, ctc_loss.launches_bwd) == (before[0] + 1, before[1] + 1)
     assert torch.isfinite(grad).all()
     torch.testing.assert_close(grad, want, rtol=0, atol=1e-5)
+
+
+def _ctc_against_plain(lp, tg, il, tl, cot):
+    """The kernels' nll, alpha and gradient against the plain versions:
+    nll 1e-5 relative + 1e-4, alpha rows t < input_length 1e-5 relative +
+    1e-4, the gradient 1e-4 of 1 + |plain| (chip_smoke.py's tolerances).
+    Returns the kernels' (nll, alpha, grad)."""
+    ext, skip = ctc_topology(tg, 0)
+    nll, alpha = ctc_ops._forward(lp, tg, il, tl, 0)
+    grad = ctc_ops._backward(lp, tg, il, tl, alpha, nll, cot, 0)
+    want_nll, want_alpha = ctc_fwd_ref(lp, ext, skip, il, tl)
+    want = ctc_bwd_ref(lp, ext, skip, il, tl, want_alpha, want_nll, cot)
+    torch.cuda.synchronize()
+    assert torch.isfinite(nll).all() and torch.isfinite(grad).all()
+    assert ((nll - want_nll).abs() <= 1e-5 * want_nll.abs() + 1e-4).all()
+    written = torch.arange(lp.shape[1], device=lp.device)[None, :] < il[:, None]
+    a, w = alpha[written], want_alpha[written]
+    assert ((a - w).abs() <= 1e-5 * w.abs() + 1e-4).all()
+    assert ((grad - want).abs() <= 1e-4 * (1 + want.abs())).all()
+    return nll, alpha, grad
+
+
+# (T', L): S = 1055 and 1057 on either side of the warp path's 32 x 33
+# lanes, T' = 77 across 32-frame chunks, and S = 8191 (the wide path's 16
+# warps; its forward stages 2 frames a chunk, its backward 1).
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,L", [(120, 527), (120, 528), (77, 64), (33, 9), (30, 4095)])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_ctc_kernels_at_the_path_edges(cuda, T, L, index_dtype):
+    lp, tg, il, tl = _ctc_case(4, T, 56, L, cuda, seed=L)
+    il[0], tl[0] = T, min(L, T // 2)  # a feasible full-length row
+    tg, il, tl = (x.to(index_dtype) for x in (tg, il, tl))
+    cot = torch.rand(4, generator=torch.Generator().manual_seed(1)).to(cuda)
+    _ctc_against_plain(lp, tg, il, tl, cot)
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_at_input_lengths_zero_and_one(cuda):
+    """Rows of 0 and 1 frames (with and without a target) and one longer
+    than T': no alpha row is written for a 0-frame row, every gradient row
+    past a row's length is 0."""
+    lp, tg, il, tl = _ctc_case(5, 40, 30, 6, cuda, seed=4)
+    il.copy_(torch.tensor([0, 1, 1, 0, 45]))
+    tl.copy_(torch.tensor([0, 0, 1, 2, 3]))
+    cot = torch.ones(5, device=cuda)
+    _, _, grad = _ctc_against_plain(lp, tg, il, tl, cot)
+    assert (grad[0] == 0).all() and (grad[3] == 0).all() and (grad[1:3, 1:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_with_one_label_repeated(cuda):
+    """A target of one label L times: the longest chain of equal-label
+    lanes, and no skip transition anywhere."""
+    B, T, L = 3, 300, 100
+    lp, tg, il, tl = _ctc_case(B, T, 20, L, cuda, seed=6)
+    tg.fill_(7)
+    il.fill_(T)
+    tl.copy_(torch.tensor([L, L // 2, 1]))
+    _ctc_against_plain(lp, tg, il, tl, torch.rand(B, device=cuda))
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_on_an_all_impossible_batch(cuda):
+    """Every row has more labels than it has frames for: losses at the
+    sentinel's scale (zero_infinity makes them 0), gradients finite."""
+    lp, tg, il, tl = _ctc_case(4, 20, 30, 40, cuda, seed=8)
+    il.fill_(10)
+    tl.fill_(30)
+    nll, _, _ = _ctc_against_plain(lp, tg, il, tl, torch.rand(4, device=cuda))
+    assert (nll > 1e29).all()
+    assert (ctc_loss(lp, tg, il, tl, reduction="none") == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,V,L", [(32, 200, 56, 64), (3, 60, 1000, 700)])
+def test_ctc_backward_is_deterministic(cuda, B, T, V, L):
+    """Two backward calls give the same bits: the labels' lanes are summed
+    in a fixed order, with no atomics."""
+    lp, tg, il, tl = _ctc_case(B, T, V, L, cuda, seed=9)
+    cot = torch.rand(B, generator=torch.Generator().manual_seed(3)).to(cuda)
+    nll, alpha = ctc_ops._forward(lp, tg, il, tl, 0)
+    first = ctc_ops._backward(lp, tg, il, tl, alpha, nll, cot, 0)
+    second = ctc_ops._backward(lp, tg, il, tl, alpha, nll, cot, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,V,L", [(32, 200, 56, 64), (4, 77, 1000, 12)])
+def test_ctc_gradient_writes_every_element(cuda, B, T, V, L):
+    """The gradient comes from torch.empty: handed the block the allocator
+    last held as NaN, every element comes back finite and equal to the
+    plain version's, zeros included."""
+    lp, tg, il, tl = _ctc_case(B, T, V, L, cuda, seed=10)
+    cot = torch.rand(B, generator=torch.Generator().manual_seed(4)).to(cuda)
+    nll, alpha = ctc_ops._forward(lp, tg, il, tl, 0)
+    torch.cuda.synchronize()
+    poison = torch.full((B, T, V), float("nan"), device=cuda)
+    del poison
+    grad = ctc_ops._backward(lp, tg, il, tl, alpha, nll, cot, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(grad).all()
+    ext, skip = ctc_topology(tg, 0)
+    want = ctc_bwd_ref(lp, ext, skip, il, tl, *reversed(ctc_fwd_ref(lp, ext, skip, il, tl)), cot)
+    assert ((grad - want).abs() <= 1e-4 * (1 + want.abs())).all()
+    labels = torch.zeros(B, V, dtype=torch.bool, device=cuda)
+    labels[:, 0] = True
+    labels.scatter_(1, tg.long(), True)
+    assert (grad.masked_fill(labels[:, None, :], 0) == 0).all()  # no label: exactly 0
+
+
+@pytest.mark.cuda
+def test_ctc_loss_launches_no_topology_kernels(cuda):
+    """On the card one ctc_loss forward launches the forward kernel and the
+    reduction, and its backward the gradient kernel: no topology, chain,
+    cast or fill kernels (int32 targets and lengths, as the trainer gives
+    them)."""
+    from torch.profiler import ProfilerActivity, profile
+    lp, tg, il, tl = _ctc_case(8, 50, 30, 9, cuda, seed=11)
+    tg, il, tl = (x.to(torch.int32) for x in (tg, il, tl))
+    x = lp.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        nll = ctc_ops.CTCNegLogLikelihood.apply(x, tg, il, tl, 0)
+        torch.autograd.grad(nll, x, torch.ones_like(nll))
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("ctc_fwd_kernel" in n for n in names) and any("ctc_bwd_kernel" in n for n in names)
+    others = [n for n in names if "ctc_fwd_kernel" not in n and "ctc_bwd_kernel" not in n]
+    assert len(others) <= 1, others  # at most the ones_like fill of the cotangent
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_log1p_is_log1pf_bit_for_bit(cuda):
+    """The kernels' branch-free log1p against the math library's log1pf
+    over every float in [0, 1] (the range exp(-|a - b|) takes) and every
+    NaN: no bit differs."""
+    assert ctc_ops.log1p_unit_mismatches(cuda) == 0
 
 
 @pytest.mark.cuda

@@ -26,11 +26,11 @@ SERVE = dict(B=16, H=4, Kh=1, T=601, D=64)
     ("flash_attention_bwd", SERVE, 14_794_792_960, 32_473_232, "operations"),
     # the (4, 4, 801, 801) uint8 keep mask
     ("dropout_mask", dict(B=4, H=4, T=801), 0, 10_265_616, "bytes"),
-    # S = 129: lp 1.4336 MB, ext 16512, skip 4128, lengths 256; alpha
+    # S = 129: lp 1.4336 MB, targets 8192 (int32), lengths 256; alpha
     # 3.3024 MB, nll 128; 10 ops per lane-frame
-    ("ctc_fwd", dict(B=32, T=200, L=64, V=56), 8_256_000, 4_757_024, "bytes"),
-    # + next_same 16512, leader 4128, alpha, nll, cot; grad 1.4336 MB
-    ("ctc_bwd", dict(B=32, T=200, L=64, V=56), 16_512_000, 6_211_392, "bytes"),
+    ("ctc_fwd", dict(B=32, T=200, L=64, V=56), 8_256_000, 4_744_576, "bytes"),
+    # + alpha, nll, cot; grad 1.4336 MB
+    ("ctc_bwd", dict(B=32, T=200, L=64, V=56), 16_512_000, 6_178_304, "bytes"),
     # x 3.2768 MB, w1 1.048576 MB, w2 0.524288 MB, b1 8192, b2 1024, y
     # 3.2768 MB; 6*M*C*F
     ("swiglu_fwd", dict(M=6400, C=256, F=1024), 10_066_329_600, 8_135_680, "operations"),

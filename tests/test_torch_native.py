@@ -42,6 +42,7 @@ print(json.dumps({{
     "wav_shape": list(got_wav[0].shape),
     "flac_equal": bool(np.array_equal(got_flac[0], want_flac[0])) and got_flac[1] == want_flac[1],
     "jax_modules": sorted(m for m in sys.modules if m.startswith("turkish_asr_tpu")),
+    "src": str(native.SRC),
 }}))
 """
 
@@ -53,6 +54,8 @@ def test_decoders_use_the_ports_own_native_library(tmp_path):
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax_modules"] == []
+    port = os.path.join(ROOT, "turkish_asr_torch") + os.sep
+    assert out["src"].startswith(port) and os.path.isfile(out["src"]), out["src"]
     assert out["wav_equal"] and out["wav_shape"] == [2, 4000]
     assert out["flac_equal"]
     if shutil.which("g++"):
@@ -62,3 +65,25 @@ def test_decoders_use_the_ports_own_native_library(tmp_path):
         assert out["natively"] == [True, True]
     else:
         assert out["lib"] is None and out["natively"] == [False, False]
+
+
+def test_native_source_is_the_ports_own_copy():
+    """The port compiles its own copy of the host C++ decoders, which
+    holds the JAX package's source unchanged below its header, and no
+    file of the port or chip_smoke.py names a path in the JAX package's
+    native tree."""
+    from turkish_asr_torch.audio import native
+    port = os.path.join(ROOT, "turkish_asr_torch")
+    assert os.path.commonpath([str(native.SRC), port]) == port
+    with open(native.SRC, encoding="utf-8") as f:
+        copy = f.read()
+    with open(os.path.join(ROOT, "turkish_asr_tpu", "native", "src", "asr_native.cpp"),
+              encoding="utf-8") as f:
+        original = f.read()
+    assert copy.endswith(original) and copy.startswith("// Copied into turkish_asr_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(port):
+        files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            assert '"turkish_asr_tpu" /' not in f.read(), path

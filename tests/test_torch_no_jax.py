@@ -46,6 +46,7 @@ SLICE_MODULES = [
     "turkish_asr_torch.scripts",
     "turkish_asr_torch.scripts.ab_swiglu",
     "turkish_asr_torch.scripts.ab_attention",
+    "turkish_asr_torch.scripts.ab_ctc",
 ]
 
 

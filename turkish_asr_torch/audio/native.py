@@ -1,9 +1,10 @@
 """The port's loader for the host C++ audio decoders.
 
 Counterpart of turkish_asr_tpu/native/loader.py (``wav_decode_native``,
-``flac_decode_native`` :83-133), without importing it: the source
-``turkish_asr_tpu/native/src/asr_native.cpp`` is read, never written, and
-compiled at first use with::
+``flac_decode_native`` :83-133), without importing it. The C++ source is
+the port's own copy, ``turkish_asr_torch/csrc/host/asr_native.cpp`` (of
+``turkish_asr_tpu/native/src/asr_native.cpp``), compiled at first use
+with::
 
     g++ -O3 -std=c++17 -shared -fPIC -o build/turkish_asr_torch/libasr_native-<hash>.so
 
@@ -19,12 +20,13 @@ import hashlib
 import os
 import subprocess
 import threading
+from pathlib import Path
 
 import numpy as np
 
 from turkish_asr_torch.ops._build import BUILD_DIR
 
-SRC = BUILD_DIR.parents[1] / "turkish_asr_tpu" / "native" / "src" / "asr_native.cpp"
+SRC = Path(__file__).resolve().parents[1] / "csrc" / "host" / "asr_native.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
