@@ -21,7 +21,12 @@ Phases; any failure raises and the script exits non-zero.
    and each kernel's bound (kernel_bounds); so is the MHA shape with no
    main-path launches (B=4, Kh=4, T'=801, rate 0, bf16, the A/B's), beside
    SDPA. The dropout dump kernel must be
-   bit-identical to the plain hash. "Device ms" below and in the kernels
+   bit-identical to the plain hash at B=4, H=4, T'=801, at T' in
+   DUMP_EDGES with B=H=3 (rows across its 16-byte groups at every phase)
+   and, at B=H=1, T' in DUMP_LARGE (past 2^31 and past 2^32 elements) on
+   the rows around those boundaries and the last rows (the plain hash of
+   those rows alone, keep_rows_ref), and launch one device kernel a call.
+   "Device ms" below and in the kernels
    line ("ms", "plain_ms", "library_ms") is CUDA events around 20 calls
    queued behind a spin kernel, so the kernels run back to back without
    the host's gaps (the profiler's kernel times for a call that waits for
@@ -46,15 +51,18 @@ Phases; any failure raises and the script exits non-zero.
    through autograd; the device kernels one ctc_loss forward and one
    backward launch are printed. The kernels' branch-free log1p must equal
    the math library's log1pf bit for bit on every float in [0, 1].
-4. SwiGLU: the port's A/B (python -m turkish_asr_torch.scripts.ab_swiglu,
-   the fused SwiGLU FFN kernel against the matmul chain) at M in {6400,
+4. SwiGLU: the port's A/B (turkish_asr_torch/scripts/ab_swiglu.py, the
+   fused SwiGLU FFN kernel against the matmul chain) at M in {6400,
    6401, 25600}, C=256, F=1024, then the kernel at every row tile against
    the fused plain version on the A/B's inputs with seeded nonzero
-   biases, into an output buffer the allocator last held as NaN: every
-   row finite, max|kernel - plain| <= 2^-7 max|plain| (both sum fp32
-   products of bf16 values in other orders, so g can round one bf16 ulp
-   apart). Median CUDA-event times of the kernel, the fused plain version
-   and the chain at each M.
+   biases, and at SWIGLU_EDGES (its copy paths' edges and every cluster
+   size the plan picks, which must all run), into an output
+   buffer the allocator last held as NaN: every row finite, max|kernel -
+   plain| <= 2^-7 max|plain| (both sum fp32 products of bf16 values in
+   other orders, so g can round one bf16 ulp apart). At M=6400 two calls
+   must be bit-identical and a call must launch one device kernel, the
+   SwiGLU kernel. Median CUDA-event times of the kernel, the fused plain
+   version and the chain at each M.
 5. Training: a synthetic corpus (tones with character transcripts, 1-8 s)
    trained through turkish_asr_torch.main at flagship width (80 mels,
    d_model 256, 4 heads MQA, 8 blocks, char tokenizer, dropout 0.1,
@@ -72,7 +80,9 @@ Phases; any failure raises and the script exits non-zero.
 7. Serving: the trained .pt answers one /transcribe through ASRService;
    then the flagship model with seeded random weights, served by
    turkish_asr_torch.serve.server on 127.0.0.1 (/health, 1 s, 8 s, 24 s,
-   timestamps, a 3-file batch) with 8 forward-kernel launches per forward;
+   timestamps, a 3-file batch) with 8 forward-kernel launches per forward,
+   exactly 8 for the batch request (one batched forward: the per-file
+   fallback that serves a failed batched forward would launch 24);
    the 8 s input's bf16 logits held within bf16's own noise of the plain
    path's and at 0.99 frame-argmax agreement, its fp32 logits within 1e-3
    and 0.99 frame-argmax agreement of the plain path's, and fp32 on the
@@ -82,8 +92,8 @@ The last three lines are the card, the kernels (launch counts from the
 training run, errors, chained and single-call times, bound_ms and
 bound_by from kernel_bounds, library_ms: the one torch call that computes
 the same function, or null where none does; kernel_ms for the CTC
-kernels; the MHA shape's times under "mha") and {"ok": true, "device":
-{...}}.
+kernels; device kernels a call for the CTC, dump and SwiGLU kernels; the
+MHA shape's times under "mha") and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -105,6 +115,13 @@ import torch
 
 SR = 16000
 SWIGLU_SHAPES = dict(M=(6400, 6401, 25600), C=256, F=1024)
+# (M, C, F) at the SwiGLU kernel's copy paths' edges: ragged everything
+# (element copies), F off the 32-unit chunk (aligned copies, zero-filled
+# groups), F % 8 == 4 (element copies at the flagship width); and the M
+# at which the plan splits F over clusters of 4 and 8 (on 132 SMs), so
+# that with the shapes above every cluster size runs.
+SWIGLU_EDGES = ((37, 40, 70), (6400, 256, 1000), (6400, 256, 1020), (3000, 256, 1024),
+                (5, 256, 1024))
 TOLERANCES = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}  # (out, lse)
 CTC_SHAPES = dict(B=32, T=(200, 800), L=(64, 512), V=(56, 1000, 32768))
 CTC_MAIN = dict(B=32, T=200, L=64, V=56)  # a training step's CTC shape
@@ -113,6 +130,8 @@ CTC_MAIN = dict(B=32, T=200, L=64, V=56)  # a training step's CTC shape
 # chunk, and the widest target the wrappers take (S = 8191, 16 warps).
 CTC_EDGES = ((200, 527, 56), (200, 528, 56), (77, 64, 56), (40, 4095, 56))
 CHAINED_CALLS = 20  # the calls between two CUDA events, as in ab_attention.py
+DUMP_EDGES = (1, 15, 16, 17)  # T' at B=3, H=3: rows across 16-byte groups at every phase
+DUMP_LARGE = (46341, 65537)  # T' at B=H=1: past 2^31 (2.1 GB) and past 2^32 elements (4.3 GB)
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
 # bf16 tensor cores, fp32 outside them, device memory.
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -157,8 +176,10 @@ def kernel_bounds(name, **shape):
       delta (B, H, T) fp32, writes dq, dk, dv fp32 and does 10*B*H*T*T*D
       flops (q k^T, g v^T, y^T g, ds^T q, ds k). bf16 inputs run on the
       tensor cores (989 TFLOP/s); fp32 inputs are held to the fp32 rate.
-    dropout_mask (B, H, T): writes the (B, H, T, T) uint8 keep mask; the
-      hash is integer work the peak table has no rate for, so bytes only.
+    dropout_mask (B, H, T): writes the (B, H, T, T) one-byte keep mask; the
+      hash is integer work the peak table has no rate for, so the bound is
+      bytes only (turkish_asr_torch/scripts/dump_floor.py counts the integer
+      instructions the compiled kernel spends, a floor this does not see).
     ctc_fwd / ctc_bwd (B, T, V, L), S = 2L + 1 lanes: the forward reads
       log-probs (B, T, V) fp32, targets (B, L) int32 and the two (B,) int32
       lengths (the kernels build the extended labels and skip flags from
@@ -202,8 +223,9 @@ def kernel_bounds(name, **shape):
     else:
         raise ValueError(f"no bound for kernel {name!r}")
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return {"flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    bound = {"flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    return bound
 
 
 def _counts():
@@ -246,7 +268,7 @@ def attention_phase():
     """Forward (dropout 0 and 0.1) and backward kernels against the plain
     versions, and the dump kernel against the plain hash."""
     from turkish_asr_torch.ops import flash_attention as fa
-    from turkish_asr_torch.ops._dropout import keep_mask_ref
+    from turkish_asr_torch.ops._dropout import keep_mask_ref, keep_rows_ref
     from turkish_asr_torch.ops._flash_attention import (
         flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
     from turkish_asr_torch.scripts.ab_attention import MAIN_PATH, SWEEP, attention_inputs
@@ -384,15 +406,41 @@ def attention_phase():
     dump = lambda: fa.dump_keep_mask(B, H, T, 7, 0.1, "cuda")  # noqa: E731
     dump_plain = lambda: keep_mask_ref(7, B, H, T, 0.1, "cuda")  # noqa: E731
     (ms, chained), (plain_ms, plain_chained) = _times(dump), _times(dump_plain)
+    kernels = _one_kernel(dump, "dump_keep_mask_kernel")
     times["dropout_mask"] = dict(ms=ms, chained_ms=chained, median_ms=_median_ms(dump),
                                  plain_ms=plain_ms, plain_chained_ms=plain_chained,
-                                 library_ms=None, **kernel_bounds("dropout_mask", B=B, H=H, T=T))
+                                 library_ms=None, device_kernels_per_call=kernels,
+                                 **kernel_bounds("dropout_mask", B=B, H=H, T=T))
     err["dropout_mask"] = 0.0
     r = times["dropout_mask"]
     print(f"dropout dump B={B} H={H} T'={T}: bit-identical to the plain hash, kept share "
-          f"{share:.5f}; device ms (chained): kernel {r['ms']:.4f} ({r['chained_ms']:.4f}; single "
-          f"{r['median_ms']:.4f}), plain {r['plain_ms']:.4f} ({r['plain_chained_ms']:.4f}); "
-          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
+          f"{share:.5f}, {kernels:.2f} device kernels a call (the dump kernel alone); device ms "
+          f"(chained): kernel {r['ms']:.4f} ({r['chained_ms']:.4f}; single {r['median_ms']:.4f}), "
+          f"plain {r['plain_ms']:.4f} ({r['plain_chained_ms']:.4f}); bound {r['bound_ms']:.4f} ms "
+          f"by {r['bound_by']}", flush=True)
+    del keep, want
+    # Rows that cross the kernel's 16-byte groups at every phase (B*H odd).
+    for T in DUMP_EDGES:
+        keep = fa.dump_keep_mask(3, 3, T, 0xBEEF + T, 0.3, "cuda")
+        if not torch.equal(keep, keep_mask_ref(0xBEEF + T, 3, 3, T, 0.3, "cuda")):
+            raise AssertionError(f"dump kernel differs from the plain hash at B=3 H=3 T'={T}")
+    print(f"dropout dump B=3 H=3 T' in {DUMP_EDGES}: bit-identical to the plain hash", flush=True)
+    # Past 2^31 elements (32-bit indices) and past 2^32 (the 64-bit
+    # instance): the rows around each boundary and the last rows against
+    # the plain hash of those rows alone.
+    for T in DUMP_LARGE:
+        keep = fa.dump_keep_mask(1, 1, T, 0xC0FFEE, 0.1, "cuda")
+        rows = sorted({0, (2 ** 31) // T, (2 ** 32) // T, T - 2, T - 1} & set(range(T)))
+        want = keep_rows_ref(0xC0FFEE, 0, 1, 0, rows, T, 0.1, "cuda")
+        if not torch.equal(keep[0, 0, rows], want):
+            raise AssertionError(f"dump kernel differs from the plain hash at T'={T}, rows {rows}")
+        large_ms = _times(lambda: fa.dump_keep_mask(1, 1, T, 7, 0.1, "cuda"), calls=5)[0]
+        print(f"dropout dump B=1 H=1 T'={T} ({T * T} elements): rows {rows} bit-identical to the "
+              f"plain hash; device {large_ms:.4f} ms, bound "
+              f"{kernel_bounds('dropout_mask', B=1, H=1, T=T)['bound_ms']:.4f} ms", flush=True)
+        times["dropout_mask"].setdefault("large", {})[T] = large_ms
+        del keep
+        torch.cuda.empty_cache()
     return err, times
 
 
@@ -429,6 +477,7 @@ def _sdpa_yardstick(q, k, v, mask, g, rate):
 def ctc_phase():
     from turkish_asr_torch.ops import ctc
     from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref, ctc_topology
+    from turkish_asr_torch.scripts.ab_attention import device_kernels
     from turkish_asr_torch.scripts.ab_ctc import calls_of, ctc_inputs, kernel_stats
 
     B = CTC_SHAPES["B"]
@@ -483,7 +532,7 @@ def ctc_phase():
                     ("ctc_bwd", bwd, bwd_plain, bwd_ms, lib_bwd, loss_bwd)):
                 ms, chained = _times(kernel)
                 _, kernel_ms, _ = kernel_stats(kernel)
-                launches, _, _ = kernel_stats(whole)
+                launches = sum(device_kernels(whole).values())
                 # the plain recursion launches thousands of small kernels a call
                 plain_ms, plain_chained = _times(plain_fn, calls=2)
                 times[name] = dict(ms=ms, chained_ms=chained, median_ms=median,
@@ -530,9 +579,24 @@ def _ctc_yardstick(lp, targets, il, tl, cot):
     return fwd, _times(lambda: torch.autograd.grad(loss, x, cot, retain_graph=True))
 
 
+def _one_kernel(fn, name):
+    """The device kernels one call of ``fn`` launches (torch.profiler over
+    20 calls, the fullest of five windows: the profiler on the card now and
+    then drops a window's events, or some of them): raises unless the only
+    kernel is the one whose name holds ``name``, about once a call."""
+    from turkish_asr_torch.scripts.ab_attention import device_kernels
+    kernels = device_kernels(fn)
+    launches = sum(kernels.values())
+    if any(name not in key for key in kernels) or round(launches) != 1:
+        raise AssertionError(f"one call launched {kernels}; expected {name} alone, once")
+    return launches
+
+
 def swiglu_phase():
     """The port's SwiGLU A/B at each M (its kernel launches counted), then
-    the kernel at every row tile against the fused plain version.
+    the kernel at every row tile against the fused plain version, two
+    calls' bits, the ragged and unaligned shapes and the device kernels a
+    call.
 
     Returns (launches in the A/B runs, max abs error, the kernel's, the
     fused plain version's and the chain's times and the bound at the first
@@ -552,13 +616,15 @@ def swiglu_phase():
 
     rng = np.random.default_rng(1)
     err, times = 0.0, {}
-    for M in SWIGLU_SHAPES["M"]:
-        x, w1, b1, w2, b2 = ab_swiglu.make_inputs(M, C, F)
-        b1 = (0.1 * rng.standard_normal(b1.shape)).astype(np.float32)
-        b2 = (0.1 * rng.standard_normal(b2.shape)).astype(np.float32)
-        args = sw.args_from_numpy(x, w1, b1, w2, b2, "cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clusters = set()
+
+    def check(M, C, F, args, label):
+        """Every tile against the fused plain version, into a block the
+        allocator last held as NaN; returns the largest error."""
         ref = swiglu_fused_ref(*args)
         tol = 2.0 ** -7 * ref.abs().max().item()
+        worst = 0.0
         for tm in sw.ROW_TILES:
             # The allocator hands the kernel's output the block this NaN
             # tensor frees, so a row the kernel leaves unwritten shows.
@@ -568,27 +634,67 @@ def swiglu_phase():
             torch.cuda.synchronize()
             rows = torch.isfinite(y.float()).all(dim=1)
             if not rows.all():
-                raise AssertionError(f"swiglu M={M} tm={tm}: {(~rows).sum().item()} rows not "
+                raise AssertionError(f"swiglu {label} tm={tm}: {(~rows).sum().item()} rows not "
                                      f"finite, the first {torch.nonzero(~rows)[0].item()}")
             e = (y.float() - ref.float()).abs().max().item()
             if e > tol:
-                raise AssertionError(f"swiglu M={M} tm={tm}: max|kernel - plain| {e} > {tol} "
+                raise AssertionError(f"swiglu {label} tm={tm}: max|kernel - plain| {e} > {tol} "
                                      f"(2^-7 max|plain|)")
-            err = max(err, e)
+            worst = max(worst, e)
+        plans = {tm: tuple(sw.swiglu_plan(M, C, F, tm, sms)[:2]) for tm in sw.ROW_TILES}
+        clusters.update(cluster for _, cluster in plans.values())
+        print(f"swiglu {label}: every row finite at tm {sw.ROW_TILES} (plans (grid, cluster) "
+              f"{plans}), max|kernel - plain| {worst:.3e} (tol {tol:.3e})", flush=True)
+        return worst, ref
+
+    for M in SWIGLU_SHAPES["M"]:
+        x, w1, b1, w2, b2 = ab_swiglu.make_inputs(M, C, F)
+        b1 = (0.1 * rng.standard_normal(b1.shape)).astype(np.float32)
+        b2 = (0.1 * rng.standard_normal(b2.shape)).astype(np.float32)
+        args = sw.args_from_numpy(x, w1, b1, w2, b2, "cuda")
+        e, _ = check(M, C, F, args, f"M={M} C={C} F={F}")
+        err = max(err, e)
         kernel_ms = _median_ms(lambda: sw.swiglu(*args))
         plain_ms = _median_ms(lambda: swiglu_fused_ref(*args))
         chain_ms = _median_ms(lambda: swiglu_chain(*args))
         if not times:
+            first, second = sw.swiglu(*args), sw.swiglu(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
+                raise AssertionError(f"two swiglu calls at M={M} differ")
+            kernels = _one_kernel(lambda: sw.swiglu(*args), "swiglu_fwd_kernel")
             (ms, chained), (plain, plain_chained) = (_times(lambda: sw.swiglu(*args)),
                                                      _times(lambda: swiglu_fused_ref(*args)))
             times = dict(ms=ms, chained_ms=chained, median_ms=kernel_ms, plain_ms=plain,
                          plain_chained_ms=plain_chained, library_ms=None,
                          chain_ms=_times(lambda: swiglu_chain(*args))[0],
+                         device_kernels_per_call=kernels,
                          **kernel_bounds("swiglu_fwd", M=M, C=C, F=F))
-        print(f"swiglu M={M} C={C} F={F}: every row finite at tm {sw.ROW_TILES}, max|kernel - "
-              f"plain| {err:.3e} (tol {tol:.3e}); kernel (tm={sw.DEFAULT_TILE}) "
-              f"{kernel_ms:.4f} ms, fused plain {plain_ms:.4f} ms, chain {chain_ms:.4f} ms",
+            print(f"swiglu M={M}: two calls bit-identical; {kernels:.2f} device kernels a call "
+                  f"(swiglu_fwd_kernel alone); device ms (chained): kernel {ms:.4f} "
+                  f"({chained:.4f}), fused plain {plain:.4f} ({plain_chained:.4f}), chain "
+                  f"{times['chain_ms']:.4f}; bound {times['bound_ms']:.4f} ms by "
+                  f"{times['bound_by']}", flush=True)
+        print(f"swiglu M={M} C={C} F={F}: kernel (tm={sw.DEFAULT_TILE}) {kernel_ms:.4f} ms, "
+              f"fused plain {plain_ms:.4f} ms, chain {chain_ms:.4f} ms (single-call medians)",
               flush=True)
+    # The staging paths' edges: C, F and M off every tile and chunk (the
+    # element-by-element copies), F off the 32-unit chunk with aligned
+    # copies, F % 8 == 4 (the value half of a w1 row off 16 bytes); and
+    # the M at which the plan picks clusters of 4 and 8.
+    for M, Ce, Fe in SWIGLU_EDGES:
+        x, w1, b1, w2, b2 = (rng.standard_normal(shape).astype(np.float32) * scale
+                             for shape, scale in (((M, Ce), 1.0), ((Ce, 2 * Fe), 0.05),
+                                                  ((1, 2 * Fe), 0.1), ((Fe, Ce), 0.05),
+                                                  ((1, Ce), 0.1)))
+        args = sw.args_from_numpy(x, w1, b1, w2, b2, "cuda")
+        aligned = sw.swiglu_plan(M, Ce, Fe, sw.DEFAULT_TILE, sms).aligned
+        e, _ = check(M, Ce, Fe, args, f"M={M} C={Ce} F={Fe} ({'aligned' if aligned else 'element'}"
+                                      f" copies)")
+        err = max(err, e)
+    if clusters != set(sw.CLUSTER_SIZES):
+        raise AssertionError(f"the SwiGLU checks ran clusters {sorted(clusters)} on {sms} SMs, "
+                             f"not every size of {sw.CLUSTER_SIZES}")
     return launches, err, times
 
 
@@ -849,14 +955,24 @@ def serving_phase(workdir):
             raise AssertionError(f"/transcribe?timestamps=1: {status} {payload}")
         print(f"POST /transcribe?timestamps=1 s8: {ms:.2f} ms, "
               f"{len(payload['segments'])} segments", flush=True)
+        before = flash_attention.launches
         status, payload, ms = _post(base + "/transcribe/batch",
                                     [("files", n + ".wav", read(n)) for n in ("b3", "b35", "b4")])
+        batch_launches = flash_attention.launches - before
         forwards += 1  # all three fall in the 4 s bucket: one batched forward
         results = payload.get("results") or []
         if status != 200 or len(results) != 3 or any(
                 r["error"] is not None or not isinstance(r["text"], str) for r in results):
             raise AssertionError(f"/transcribe/batch: {status} {payload}")
-        print(f"POST /transcribe/batch 3 files: {ms:.2f} ms", flush=True)
+        # One batched forward launches the forward kernel once a block; the
+        # per-file fallback (the batched forward raised) would launch it
+        # once a block and file.
+        if batch_launches != cfg.n_blocks:
+            raise AssertionError(f"/transcribe/batch launched the attention forward "
+                                 f"{batch_launches} times; one batched forward launches "
+                                 f"{cfg.n_blocks}")
+        print(f"POST /transcribe/batch 3 files: {ms:.2f} ms, {batch_launches} attention forward "
+              f"launches (one batched forward)", flush=True)
         launches = flash_attention.launches
     finally:
         server.shutdown()
@@ -987,11 +1103,14 @@ def main():
             entry["serving_launches"] = serving_launches
             entry["serving"] = {k: times["serve"][name][k] for k in keys}
         if name in ("ctc_fwd", "ctc_bwd"):
-            entry.update(kernel_ms=t["kernel_ms"],
-                         device_kernels_per_call=t["device_kernels_per_call"])
+            entry["kernel_ms"] = t["kernel_ms"]
+        if name in ("ctc_fwd", "ctc_bwd", "dropout_mask", "swiglu_fwd"):
+            entry["device_kernels_per_call"] = t["device_kernels_per_call"]
+        if name == "dropout_mask":
+            entry["large_ms"] = t["large"]
         if name == "swiglu_fwd":
             entry.update(chain_ms=t["chain_ms"], on_main_path=False,
-                         path="python -m turkish_asr_torch.scripts.ab_swiglu")
+                         path="python turkish_asr_torch/scripts/ab_swiglu.py")
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -18,14 +18,16 @@ version's fp32 recursion with the card's own exp/log1p: losses within
 order) on the small cases, and chip_smoke.py's tolerances (nll 1e-5
 relative + 1e-4, gradients 1e-4 of 1 + |plain|) at the path edges, where
 impossible rows sum unscaled lane values to hundreds; two backward calls
-agree bit for bit. The dump kernel is bit-identical to the plain hash. The SwiGLU
-kernel is held within 2^-7 max|plain| of the fused plain version (exact
-bf16 products summed in fp32 in other orders, so g can round one bf16 ulp
-apart).
+agree bit for bit. The dump kernel is bit-identical to the plain hash and
+launches one device kernel a call. The SwiGLU kernel is held within 2^-7
+max|plain| of the fused plain version (exact bf16 products summed in fp32
+in other orders, so g can round one bf16 ulp apart), and two calls agree
+bit for bit.
 """
 
 import contextlib
 import io
+import json
 import re
 from unittest import mock
 
@@ -39,7 +41,7 @@ from turkish_asr_torch.ops import ctc as ctc_ops
 from turkish_asr_torch.ops import flash_attention as fa_ops
 from turkish_asr_torch.ops import swiglu as sw
 from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref, ctc_topology
-from turkish_asr_torch.ops._dropout import keep_mask_ref
+from turkish_asr_torch.ops._dropout import keep_mask_ref, keep_rows_ref
 from turkish_asr_torch.ops._flash_attention import (
     flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_fwd_stats_ref)
 from turkish_asr_torch.ops.ctc import ctc_loss
@@ -240,6 +242,41 @@ def test_dump_kernel_is_the_plain_hash(cuda, H, T):
     assert torch.equal(got, keep_mask_ref(0xC0FFEE, 3, H, T, 0.1, cuda))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 15, 16, 17])
+def test_dump_kernel_across_its_16_byte_groups(cuda, T):
+    """B*H odd and T' around 16: rows start at every phase of the kernel's
+    16-byte groups, and the element count is no multiple of 16."""
+    got = dump_keep_mask(3, 3, T, 0xBEEF + T, 0.3, cuda)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool
+    assert torch.equal(got, keep_mask_ref(0xBEEF + T, 3, 3, T, 0.3, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [46341, 65537])
+def test_dump_kernel_past_2_to_the_31_and_32_elements(cuda, T):
+    """One (1, 1, T', T') dump of 2.1 GB (32-bit indices past 2^31) and of
+    4.3 GB (the 64-bit instance): the rows around the boundaries and the
+    last rows against the plain hash of those rows alone."""
+    keep = dump_keep_mask(1, 1, T, 0xC0FFEE, 0.1, cuda)
+    rows = sorted({0, (2 ** 31) // T, (2 ** 32) // T, T - 2, T - 1} & set(range(T)))
+    try:
+        assert torch.equal(keep[0, 0, rows], keep_rows_ref(0xC0FFEE, 0, 1, 0, rows, T, 0.1, cuda))
+    finally:
+        del keep
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_dump_launches_one_device_kernel(cuda):
+    """The kernel writes the bool buffer itself: no cast kernel after it."""
+    from turkish_asr_torch.scripts.ab_attention import device_kernels
+    kernels = device_kernels(lambda: dump_keep_mask(4, 4, 801, 7, 0.1, cuda))
+    assert all("dump_keep_mask_kernel" in name for name in kernels), kernels
+    assert round(sum(kernels.values())) == 1
+
+
 def _ctc_case(B, T, V, L, cuda, seed=0):
     g = torch.Generator().manual_seed(seed)
     lp = torch.log_softmax(torch.randn(B, T, V, generator=g), -1)
@@ -386,17 +423,18 @@ def test_ctc_loss_launches_no_topology_kernels(cuda):
     """On the card one ctc_loss forward launches the forward kernel and the
     reduction, and its backward the gradient kernel: no topology, chain,
     cast or fill kernels (int32 targets and lengths, as the trainer gives
-    them)."""
-    from torch.profiler import ProfilerActivity, profile
+    them). The profiler's fullest of five windows: on the card it now and
+    then drops a window's events."""
+    from turkish_asr_torch.scripts.ab_attention import device_kernels
     lp, tg, il, tl = _ctc_case(8, 50, 30, 9, cuda, seed=11)
     tg, il, tl = (x.to(torch.int32) for x in (tg, il, tl))
     x = lp.clone().requires_grad_(True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def step():
         nll = ctc_ops.CTCNegLogLikelihood.apply(x, tg, il, tl, 0)
         torch.autograd.grad(nll, x, torch.ones_like(nll))
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    names = list(device_kernels(step, calls=1))
     assert any("ctc_fwd_kernel" in n for n in names) and any("ctc_bwd_kernel" in n for n in names)
     others = [n for n in names if "ctc_fwd_kernel" not in n and "ctc_bwd_kernel" not in n]
     assert len(others) <= 1, others  # at most the ones_like fill of the cotangent
@@ -426,16 +464,21 @@ def test_ctc_loss_gradient_on_the_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [6400, 6401, 25600, 5])
+@pytest.mark.parametrize("M", [6400, 6401, 25600, 5, 3000])
 def test_swiglu_kernel_matches_plain_version(cuda, M):
     """Every row tile, the A/B's inputs with nonzero biases, the output in
-    a block the allocator last held as NaN (an unwritten row shows)."""
+    a block the allocator last held as NaN (an unwritten row shows). At
+    tm=128 on the H100 (132 SMs) the plan splits F over clusters of 2 at
+    M=6400 and 6401, of 8 at M=5 and of 4 at M=3000 (24 tiles)."""
     rng = np.random.default_rng(M)
     x, w1, _, w2, _ = ab_swiglu.make_inputs(M, 256, 1024)
     b1 = (0.1 * rng.standard_normal((1, 2048))).astype(np.float32)
     b2 = (0.1 * rng.standard_normal((1, 256))).astype(np.float32)
     args = sw.args_from_numpy(x, w1, b1, w2, b2, cuda)
     want = swiglu_fused_ref(*args).float()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want_cluster = {6400: 2, 6401: 2, 25600: 1, 5: 8, 3000: 4}[M]
+    assert sw.swiglu_plan(M, 256, 1024, 128, sms).cluster == want_cluster
     for tm in sw.ROW_TILES:
         poison = torch.full((M, 256), float("nan"), dtype=torch.bfloat16, device=cuda)
         del poison
@@ -463,16 +506,65 @@ def test_swiglu_kernel_takes_narrow_and_ragged_shapes(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,C,F", [(6400, 256, 1024), (6401, 256, 1024), (6400, 256, 1000),
+                                   (37, 40, 70)])
+def test_swiglu_kernel_is_deterministic(cuda, M, C, F):
+    """Two calls give the same bits at every tile: the cluster's partial
+    y's are summed in a fixed order."""
+    rng = np.random.default_rng(M + F)
+    args = sw.args_from_numpy(*(rng.standard_normal(shape).astype(np.float32) * 0.1
+                                for shape in ((M, C), (C, 2 * F), (1, 2 * F), (F, C), (1, C))),
+                              cuda)
+    for tm in sw.ROW_TILES:
+        first, second = sw.swiglu(*args, tm=tm), sw.swiglu(*args, tm=tm)
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,F", [(256, 1000), (256, 1020), (200, 64), (136, 96)])
+def test_swiglu_kernel_at_its_copy_paths_edges(cuda, C, F):
+    """F off the 32-unit chunk with 16-byte copies (1000), F % 8 == 4 and
+    C % 16 == 8 (the element copies at width; a zero-filled group of 8
+    columns), against the fused plain version at every tile."""
+    rng = np.random.default_rng(C + F)
+    M = 6400
+    args = sw.args_from_numpy(*(rng.standard_normal(shape).astype(np.float32) * scale
+                                for shape, scale in (((M, C), 1.0), ((C, 2 * F), 0.05),
+                                                     ((1, 2 * F), 0.1), ((F, C), 0.05),
+                                                     ((1, C), 0.1))), cuda)
+    want = swiglu_fused_ref(*args).float()
+    for tm in sw.ROW_TILES:
+        got = sw.swiglu(*args, tm=tm).float()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -7 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_swiglu_launches_one_device_kernel(cuda):
+    from turkish_asr_torch.scripts.ab_attention import device_kernels
+    x, w1, b1, w2, b2 = ab_swiglu.make_inputs(6400, 256, 1024)
+    args = sw.args_from_numpy(x, w1, b1, w2, b2, cuda)
+    kernels = device_kernels(lambda: sw.swiglu(*args))
+    assert all("swiglu_fwd_kernel" in name for name in kernels), kernels
+    assert round(sum(kernels.values())) == 1
+
+
+@pytest.mark.cuda
 def test_swiglu_ab_script_prints_its_lines(cuda):
     out = io.StringIO()
     before = sw.swiglu.launches
     with contextlib.redirect_stdout(out):
         result = ab_swiglu.main(["640", "256", "1024"])
     lines = out.getvalue().splitlines()
-    assert len(lines) == len(sw.ROW_TILES) + 2
-    for line, tm in zip(lines, sw.ROW_TILES):
-        assert re.fullmatch(rf"cuda tm= *{tm}: [0-9.]+ ms \(max err vs chain [0-9.e+-]+\)", line)
-    assert re.fullmatch(r"fused plain: [0-9.]+ ms \(max err vs chain [0-9.e+-]+\)", lines[-2])
-    assert re.fullmatch(r"chain: [0-9.]+ ms M=640 C=256 F=1024", lines[-1])
+    assert len(lines) == len(sw.ROW_TILES) + 4
+    assert lines[0].startswith(torch.cuda.get_device_name(0) + "; checkout ")
+    times = r"device [0-9.]+ ms, chained [0-9.]+ ms"
+    for line, tm in zip(lines[1:], sw.ROW_TILES):
+        assert re.fullmatch(rf"cuda tm= *{tm}: {times} \(max err vs chain [0-9.e+-]+\)", line)
+    assert re.fullmatch(rf"fused plain: {times} \(max err vs chain [0-9.e+-]+\)", lines[-3])
+    assert re.fullmatch(rf"chain: {times} M=640 C=256 F=1024", lines[-2])
+    assert json.loads(lines[-1]) == json.loads(json.dumps(result))
     assert sw.swiglu.launches > before
-    assert set(result["tiles"]) == set(sw.ROW_TILES) and result["chain_ms"] > 0
+    assert set(result["tiles"]) == set(sw.ROW_TILES) and result["chain"]["ms"] > 0
+    assert all(r["ms"] > 0 and r["max_err"] < 0.1 for r in result["tiles"].values())

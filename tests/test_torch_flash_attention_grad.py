@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from turkish_asr_torch.ops._dropout import fmix32, keep_mask_ref, keep_threshold
+from turkish_asr_torch.ops._dropout import fmix32, keep_mask_ref, keep_rows_ref, keep_threshold
 from turkish_asr_torch.ops._flash_attention import flash_attention_fwd_ref
 from turkish_asr_torch.ops.flash_attention import dump_keep_mask, flash_attention
 
@@ -170,3 +170,16 @@ def test_dump_keep_mask_on_cpu_is_the_plain_hash():
     with pytest.raises(ValueError, match="seed"):
         flash_attention(torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8),
                         torch.zeros(1, 1, 4, 8), None, 0.1, -1)
+
+
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 33])
+def test_keep_rows_ref_is_keep_mask_refs_rows(T):
+    """The plain hash of a few rows, for dumps too large to rebuild whole,
+    against the same rows of the whole mask (B=3, H=3)."""
+    whole = keep_mask_ref(0xBEEF, 3, 3, T, 0.3)
+    rows = sorted({0, T // 2, T - 1})
+    for b in range(3):
+        for h in range(3):
+            got = keep_rows_ref(0xBEEF, b, 3, h, rows, T, 0.3)
+            assert got.shape == (len(rows), T) and got.dtype == torch.bool
+            assert torch.equal(got, whole[b, h, rows])

@@ -1,5 +1,6 @@
-"""chip_smoke.kernel_bounds against counts made by hand, and the attention
-timing script's shapes and refusal without a card (no card needed).
+"""chip_smoke.kernel_bounds against counts made by hand, the attention
+timing script's shapes and refusal without a card, and the dump floor
+script's loops and floor on a made-up disassembly (no card needed).
 
 The bound is the larger of operations over the H100's peak for their type
 (989 TFLOP/s bf16, 67 fp32) and bytes over 3.35 TB/s, each input byte read
@@ -9,7 +10,7 @@ once and each output byte written once.
 import pytest
 
 import chip_smoke
-from turkish_asr_torch.scripts import ab_attention
+from turkish_asr_torch.scripts import ab_attention, dump_floor
 
 TRAIN = dict(B=32, H=4, Kh=1, T=200, D=64)
 SERVE = dict(B=16, H=4, Kh=1, T=601, D=64)
@@ -76,3 +77,91 @@ def test_ab_attention_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         ab_attention.main([])
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_121dump_keep_mask_kernelIjEEvPhT_iijj
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;     /* 0x00000a00ff017b82 */
+                                                              /* 0x000fe40000000800 */
+.L_x_1:
+        /*0010*/                   IMAD.MOV.U32 R2, RZ, RZ, R3 ;
+        /*0020*/                   LOP3.LUT R4, R2, 0x1, RZ, 0x3c, !PT ;
+        /*0030*/              @!P0 BRA `(.L_x_3) ;
+.L_x_2:
+        /*0040*/                   STG.E.U8 desc[UR4][R6.64], R4 ;
+        /*0050*/                   IADD3 R6, R6, 0x1, RZ ;
+        /*0060*/               @P1 BRA `(.L_x_2) ;
+.L_x_3:
+        /*0070*/                   SHF.R.U32.HI R5, RZ, 0x10, R4 ;
+        /*0080*/                   STG.E.128 desc[UR4][R8.64], R4 ;
+        /*0090*/               @P2 BRA `(.L_x_1) ;
+.L_x_4:
+        /*00a0*/                   ISETP.GE.U32.AND P0, PT, R2, R3, PT ;
+        /*00b0*/               @P0 BRA 0xa0 ;
+        /*00c0*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_121dump_keep_mask_kernelImEEvPhT_iijj
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_9:
+        /*0010*/                   LOP3.LUT R4, R2, 0x1, RZ, 0x3c, !PT ;
+        /*0020*/                   LOP3.LUT R4, R4, 0x1, RZ, 0x3c, !PT ;
+        /*0030*/                   BRA.U !UP0, `(.L_x_8) ;
+        /*0040*/                   STG.E.U8 desc[UR4][R8.64], R4 ;
+.L_x_8:
+        /*0050*/                   SEL R5, R4, RZ, P0 ;
+        /*0060*/                   STG.E.128 desc[UR4][R8.64], R4 ;
+        /*0070*/               @P2 BRA `(.L_x_9) ;
+        /*0080*/                   EXIT ;
+"""
+
+
+def test_dump_floor_counts_each_outermost_loop():
+    """cuobjdump's text: a loop is a backward branch and the instructions
+    from its target up to it; its pass through the 16-byte store takes the
+    forward branch that skips the byte stores (the nested loop). IMAD (the
+    FMA pipe) is not an ALU instruction, LOP3, IADD3, SHF and ISETP are;
+    branches by label and by address resolve."""
+    functions = dump_floor.parse_sass(SASS)
+    assert list(functions) == ["_ZN12_GLOBAL__N_121dump_keep_mask_kernelIjEEvPhT_iijj",
+                               "_ZN12_GLOBAL__N_121dump_keep_mask_kernelImEEvPhT_iijj"]
+    first = functions["_ZN12_GLOBAL__N_121dump_keep_mask_kernelIjEEvPhT_iijj"]
+    assert [i.opcode for i in first[:3]] == ["LDC", "IMAD", "LOP3"]
+    assert [(i.address, i.target, i.conditional) for i in first if i.opcode == "BRA"] == [
+        (0x30, 0x70, True), (0x60, 0x40, True), (0x90, 0x10, True), (0xb0, 0xa0, True)]
+    outer, tail = dump_floor.loops(first)
+    assert (outer["start"], outer["end"], outer["count"], outer["nested"]) == (0x10, 0x90, 9, 1)
+    # 0x10, 0x20, 0x30 (taken), 0x70, 0x80 (the store), 0x90
+    assert outer["group"] == {"count": 6, "alu": 2,
+                              "opcodes": {"IMAD": 1, "LOP3": 1, "BRA": 2, "SHF": 1, "STG": 1}}
+    assert (tail["start"], tail["end"], tail["count"], tail["group"]) == (0xa0, 0xb0, 2, None)
+
+
+@pytest.mark.parametrize("T,instance,alu", [(801, "IjE", 2), (65537, "ImE", 3), (15, "IjE", 2)])
+def test_dump_floor_takes_the_shapes_instance(T, instance, alu):
+    """The 32-bit instance while B*H*T*T + 15 < 2^32, else the 64-bit one;
+    its first loop with a 16-byte store; groups x ALU instructions over 64
+    lanes a clock on each SM."""
+    functions = dump_floor.parse_sass(SASS)
+    floor, loop, name = dump_floor.dump_floor_ms(functions, 4, 4, T, 132, 1.98e9)
+    assert instance in name and loop["group"]["alu"] == alu
+    assert floor == pytest.approx(1e3 * -(-16 * T * T // 16) * alu / (132 * 64 * 1.98e9))
+
+
+def test_dump_floor_needs_a_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        dump_floor.main(["4", "4", "801", "1", "1", "46341"])
+    with pytest.raises(SystemExit):
+        dump_floor.main(["4", "4"])  # shapes come as triples
+
+
+def test_ab_attention_dump_needs_a_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        ab_attention.main(["--dump"])
+    assert ab_attention.DUMP_SHAPES[0] == (4, 4, max(ab_attention.SWEEP["T"]))
+    B, H, T = ab_attention.DUMP_SHAPES[1]
+    assert 2 ** 31 < B * H * T * T < 2 ** 32

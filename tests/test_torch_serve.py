@@ -9,6 +9,7 @@ amplify that by a small factor.
 
 import json
 import os
+import re
 import sys
 import threading
 import urllib.request
@@ -155,15 +156,87 @@ def test_batch_captures_per_file_errors(service, wavs):
     assert r[0]["text"] == service.asr.transcribe(wavs["one"])
 
 
-def test_batched_forward_fault_is_500(model_pt, wavs):
+def _broken(paths, return_errors=False):
+    raise RuntimeError("device fault")
+
+
+def test_batched_forward_fault_falls_back_per_file(model_pt, wavs):
+    """A fault in the batched forward costs no upload its text: each file
+    is transcribed on its own, and the request answers 200 with each
+    upload's text or error, as the JAX server does."""
     svc = _service(model_pt)
+    svc.asr.transcribe_files = _broken
+    status, payload = svc.transcribe_batch([("a.wav", _read(wavs["one"])),
+                                            ("bad.wav", b"not a wav")])
+    assert status == 200
+    good, bad = payload["results"]
+    assert good == {"filename": "a.wav", "text": svc.asr.transcribe(wavs["one"]), "error": None}
+    assert bad["filename"] == "bad.wav" and bad["text"] == ""
+    assert "audio format" in bad["error"]
 
-    def broken(paths, return_errors=False):
-        raise RuntimeError("device fault")
 
-    svc.asr.transcribe_files = broken
-    status, payload = svc.transcribe_batch([("a.wav", _read(wavs["one"]))])
-    assert status == 500 and "device fault" in payload["detail"]
+def _without_temp_names(results):
+    """The per-file errors name the upload's temporary file; each service
+    draws its own."""
+    return [dict(r, error=r["error"] and re.sub(r"\S+\.wav", "<upload>", r["error"]))
+            for r in results]
+
+
+def test_batched_forward_fault_gives_the_jax_servers_payload(model_pt, wavs, monkeypatch):
+    """transcribe_files raises in both services and one upload is bad: the
+    port and the JAX server (driven as tests/test_serve.py drives it) give
+    the same status and results. Both serve the same .pt in fp32, where
+    their texts agree (test_transcripts_and_logits_match_jax)."""
+    import jax.numpy as jnp
+    from inference import ASRInference as JaxASRInference
+    from turkish_asr_tpu.serve import server as jax_server
+
+    monkeypatch.setenv("ASR_MODEL_PATH", model_pt)
+    jax_svc = jax_server.ASRService(jax_server.ServerConfig(), warmup=False)
+    assert jax_svc.asr is not None
+    jax_svc.asr = JaxASRInference(model_path=model_pt, compute_dtype=jnp.float32,
+                                  data_parallel=False, use_pallas=False)
+    port_svc = _service(model_pt)
+    port_svc.asr.compute_dtype = torch.float32
+    uploads = [("a.wav", _read(wavs["one"])), ("bad.wav", b"not a wav"),
+               ("b.wav", _read(wavs["two_half"]))]
+    answers = []
+    for svc in (jax_svc, port_svc):
+        svc.asr.transcribe_files = _broken
+        status, payload = svc.transcribe_batch(uploads)
+        answers.append((status, _without_temp_names(payload["results"])))
+    assert answers[1] == answers[0]
+    assert answers[0][0] == 200 and answers[0][1][1]["error"] is not None
+
+
+def test_default_model_path_is_the_trainers_best_model(monkeypatch):
+    monkeypatch.delenv("ASR_MODEL_PATH", raising=False)
+    assert ServerConfig().MODEL_PATH == "./runs/best_model.pt"
+
+
+def test_default_train_then_serve_answers_200(tmp_path, monkeypatch, wavs):
+    """python -m turkish_asr_torch.main with its default checkpoint paths,
+    then the server with its defaults, in one working directory: the
+    server finds and serves the model the trainer wrote."""
+    from turkish_asr_torch.main import main
+
+    monkeypatch.delenv("ASR_MODEL_PATH", raising=False)
+    monkeypatch.chdir(tmp_path)
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    t = np.arange(SR // 2) / SR
+    for i, word in enumerate(["merhaba", "evet", "bir", "iki", "üç", "dört"]):
+        write_wav(str(corpus / f"s{i}.wav"),
+                  (0.3 * np.sin(2 * np.pi * (180 + 90 * i) * t)).astype(np.float32), SR)
+        (corpus / f"s{i}.txt").write_text(word, encoding="utf-8")
+    main(["--data_path", str(corpus), "--val_split", "0.34", "--test_split", "0",
+          "--d_model", "32", "--n_heads", "2", "--n_blocks", "2", "--batch_size", "2",
+          "--epochs", "1", "--num_workers", "0", "--device", "cpu"])
+    assert (tmp_path / "runs" / "best_model.pt").exists()
+    svc = ASRService(warmup=False, device="cpu")
+    assert svc.asr is not None
+    status, payload = svc.transcribe_upload("a.wav", _read(wavs["one"]))
+    assert status == 200 and isinstance(payload["text"], str)
 
 
 def test_model_missing_503(tmp_path):

@@ -152,7 +152,7 @@ def _refused(change):
     (lambda x, w1, b1, w2, b2: (x.float(), w1, b1, w2, b2, 32), "must be bf16"),
     (lambda x, w1, b1, w2, b2: (x, w1, b1, w2.half(), b2, 32), "must be bf16"),
     (lambda x, w1, b1, w2, b2: (x, w1, b1.bfloat16(), w2, b2, 32), "must be fp32"),
-    (lambda x, w1, b1, w2, b2: (x, w1, b1, w2, b2, 128), "tm must be one of"),
+    (lambda x, w1, b1, w2, b2: (x, w1, b1, w2, b2, 32), "tm must be one of"),
     (lambda x, w1, b1, w2, b2: (x[:0], w1, b1, w2, b2, 32), "M >= 1"),
     (lambda x, w1, b1, w2, b2: (x, w1, b1, w2, b2.requires_grad_(), 32), "forward only"),
     (lambda x, w1, b1, w2, b2: (x.requires_grad_(), w1, b1, w2, b2, 32), "requires grad"),
@@ -174,5 +174,76 @@ def test_entry_point_needs_a_cuda_card():
     proc = subprocess.run([sys.executable, "-m", "turkish_asr_torch.scripts.ab_swiglu",
                            "64", "32", "64"], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr and proc.stdout == ""
+
+
+SMEM = 232_448  # the H100's dynamic shared memory a block
+SMS = 132  # the H100 SXM's streaming multiprocessors
+
+
+@pytest.mark.parametrize("tm", sw.ROW_TILES)
+@pytest.mark.parametrize("M", [1, 5, 3000, 6400, 6401, 25600])
+def test_plan_covers_the_rows_within_shared_memory(M, tm):
+    """The flagship FFN (C=256, F=1024): the blocks of one cluster share
+    rows, the clusters' tiles cover M with no tile past it, the cluster
+    splits F's 32-unit chunks and the shared memory fits a block."""
+    p = sw.swiglu_plan(M, 256, 1024, tm, SMS)
+    assert p.cluster in sw.CLUSTER_SIZES and p.cluster <= 1024 // sw.CHUNK
+    assert p.grid % p.cluster == 0
+    tiles = p.grid // p.cluster
+    assert tiles * tm >= M > (tiles - 1) * tm
+    assert p.smem <= SMEM
+    assert p.aligned
+    # the fewest blocks of a cluster that put a block on half the 132 SMs
+    assert 2 * p.grid >= SMS or p.cluster == sw.CLUSTER_SIZES[-1]
+    assert p.cluster == 1 or 2 * tiles * (p.cluster // 2) < SMS
+
+
+def test_plan_at_the_a_b_shapes():
+    """M=6400: 50 tiles of 128 rows in clusters of 2, or 100 of 64 alone
+    (100 blocks either way); M=25600 needs no cluster; M=3000 takes
+    clusters of 4 (24 tiles), M=1 of 8. The shared memory the kernel's
+    header states: 228,864 bytes at tm=128, 195,072 at tm=64."""
+    assert sw.swiglu_plan(6400, 256, 1024, 128, SMS) == (100, 2, 228_864, True)
+    assert sw.swiglu_plan(6400, 256, 1024, 64, SMS) == (100, 1, 195_072, True)
+    assert sw.swiglu_plan(25600, 256, 1024, 128, SMS) == (200, 1, 228_864, True)
+    assert sw.swiglu_plan(3000, 256, 1024, 128, SMS)[:2] == (96, 4)
+    assert sw.swiglu_plan(1, 256, 1024, 128, SMS)[:2] == (8, 8)
+
+
+@pytest.mark.parametrize("sms,cluster", [(100, 1), (114, 2), (132, 2), (264, 4)])
+def test_plan_follows_the_cards_sms(sms, cluster):
+    """The cluster fills half the card it runs on: at M=6400, tm=128 (50
+    tiles) a card of 100 SMs needs none, one of 264 clusters of 4."""
+    assert sw.swiglu_plan(6400, 256, 1024, 128, sms).cluster == cluster
+
+
+@pytest.mark.parametrize("C,F", [(256, 1024), (256, 1000), (256, 1020), (40, 70), (8, 8),
+                                 (12, 64), (256, 4), (1, 1), (200, 36)])
+def test_plan_takes_the_aligned_copies_exactly_where_they_fit(C, F):
+    """16-byte copies need C % 8 == 0 (x and w2 rows, 2C bytes) and F % 8
+    == 0: the value half of a w1 row starts at byte 2F, and a chunk's last
+    valid unit must end a 16-byte group. A cluster never outnumbers F's
+    chunks."""
+    for tm in sw.ROW_TILES:
+        p = sw.swiglu_plan(6400, C, F, tm, SMS)
+        assert p.aligned == (C % 8 == 0 and F % 8 == 0)
+        assert p.cluster <= -(-F // sw.CHUNK)
+
+
+@pytest.mark.parametrize("M,C,F,tm,match", [(0, 8, 8, 64, "M >= 1"), (4, 257, 8, 64, "C <= 256"),
+                                            (4, 8, 0, 64, "F >= 1"), (4, 8, 8, 32, "tm must be")])
+def test_plan_refuses_what_the_kernel_does_not_take(M, C, F, tm, match):
+    with pytest.raises(ValueError, match=match):
+        sw.swiglu_plan(M, C, F, tm, SMS)
+
+
+def test_ab_script_by_path_needs_a_cuda_card():
+    """Run by path with --root, as the parent-against-change A/B runs it."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "turkish_asr_torch", "scripts",
+                                                        "ab_swiglu.py"), "--root", ROOT, "64"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr and proc.stdout == ""

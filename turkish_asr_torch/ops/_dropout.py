@@ -43,13 +43,31 @@ def fmix32(h):
     return h ^ (h >> 16)
 
 
+def _row_hashes(seed, bh, t):
+    """The row hashes of query rows ``t`` of (batch, head) index ``bh`` =
+    b * H + h, int64 tensors broadcast together."""
+    stream = fmix32(int(seed) ^ _mul32(bh + 1, 0x9E3779B1))
+    return fmix32(stream ^ _mul32(t + 1, 0x85EBCA77))
+
+
+def _keeps(row, T, rate):
+    """row's keep bits against keys 0..T-1, on a new last axis."""
+    keys = torch.arange(1, T + 1, dtype=torch.int64, device=row.device)
+    return fmix32(row[..., None] ^ _mul32(keys, 0xC2B2AE3D)) >= keep_threshold(rate)
+
+
 def keep_mask_ref(seed, B, H, T, rate, device="cpu"):
     """(B, H, T, T) bool keep mask of query rows against keys, for query
     heads H (MQA and MHA alike). ``seed`` is an int in [0, 2^32)."""
     i64 = dict(dtype=torch.int64, device=device)
-    bh = torch.arange(B, **i64)[:, None] * H + torch.arange(H, **i64)[None, :] + 1
-    stream = fmix32(int(seed) ^ _mul32(bh, 0x9E3779B1))                        # (B, H)
-    pos = torch.arange(1, T + 1, **i64)
-    row = fmix32(stream[:, :, None] ^ _mul32(pos, 0x85EBCA77)[None, None, :])  # (B, H, T)
-    bits = fmix32(row[..., None] ^ _mul32(pos, 0xC2B2AE3D)[None, None, None, :])
-    return bits >= keep_threshold(rate)
+    bh = torch.arange(B, **i64)[:, None] * H + torch.arange(H, **i64)[None, :]
+    return _keeps(_row_hashes(seed, bh[:, :, None], torch.arange(T, **i64)), T, rate)
+
+
+def keep_rows_ref(seed, b, H, h, rows, T, rate, device="cpu"):
+    """(len(rows), T) bool: query rows ``rows`` (ints in [0, T)) of batch
+    ``b`` and query head ``h`` (of H) of ``keep_mask_ref``'s mask, without
+    the rest of it: a check of a dump too large to rebuild whole."""
+    i64 = dict(dtype=torch.int64, device=device)
+    row = _row_hashes(seed, torch.tensor(b * H + h, **i64), torch.as_tensor(rows, **i64))
+    return _keeps(row.reshape(-1), T, rate)

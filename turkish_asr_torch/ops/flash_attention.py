@@ -272,7 +272,8 @@ flash_attention.launches_bwd = 0
 def dump_keep_mask(B, H, T, seed, rate, device):
     """(B, H, T, T) bool: the keep mask the kernels apply for ``seed`` and
     ``rate`` (query rows against keys, per query head). The dump kernel on
-    a CUDA device, the plain hash on the CPU."""
+    a CUDA device (one device kernel a call, writing the bool buffer
+    itself), the plain hash on the CPU."""
     rate = float(rate)
     _check_dropout(rate, seed)
     device = torch.device(device)
@@ -280,7 +281,7 @@ def dump_keep_mask(B, H, T, seed, rate, device):
         return keep_mask_ref(seed, B, H, T, rate, device)
     if device.type != "cuda":
         raise ValueError(f"dump_keep_mask runs on cpu or cuda, got {device}")
-    keep = torch.empty((B, H, T, T), dtype=torch.uint8, device=device)
+    keep = torch.empty((B, H, T, T), dtype=torch.bool, device=device)  # the kernel writes 0/1
     fn = load_dump_kernel()
     with torch.cuda.device(device):
         rc = fn(keep.data_ptr(), B, H, T, int(seed), keep_threshold(rate),
@@ -288,7 +289,7 @@ def dump_keep_mask(B, H, T, seed, rate, device):
     if rc != 0:
         raise RuntimeError(f"dump_keep_mask launch failed with CUDA error {rc}")
     _count(dump_keep_mask)
-    return keep.bool()
+    return keep
 
 
 dump_keep_mask.launches = 0

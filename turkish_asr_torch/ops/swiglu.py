@@ -5,10 +5,15 @@ the CPU go to the plain version (``_swiglu.py::swiglu_fused_ref``); CUDA
 tensors launch the hand-written Hopper kernel (``csrc/swiglu_fwd.cu``) or
 raise. Forward only, as the TPU kernel: an input that requires grad is
 refused. ``swiglu.launches`` counts the kernel launches.
+
+``swiglu_plan`` is the kernel's launch arithmetic, in Python so that the
+CPU tests hold it: the grid, the thread-block cluster that splits F, the
+shared memory and the copy path, which the kernel takes from it.
 """
 
 import ctypes
 import threading
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -17,16 +22,56 @@ from turkish_asr_torch.ops._build import load_library
 from turkish_asr_torch.ops._swiglu import swiglu_fused_ref
 
 SOURCES = ("swiglu_fwd.cu",)
-ROW_TILES = (16, 32, 64)  # rows a block owns; one kernel instance each
-DEFAULT_TILE = 64  # the fastest of the three at M=6400, C=256, F=1024 on the H100 (PERF.md)
-MAX_C = 256  # y columns a block holds
+ROW_TILES = (64, 128)  # rows a block owns (16 a warp); one kernel instance each
+DEFAULT_TILE = 128  # the faster of the two at M=6400, C=256, F=1024 on the H100 (PERF.md)
+MAX_C = 256  # y columns a warp holds
+CHUNK = 32  # hidden units a block stages and multiplies at a time
+STAGES = 3  # chunks in shared memory: two in flight while one is multiplied
+CLUSTER_SIZES = (1, 2, 4, 8)  # blocks of a cluster that split F (8: the portable most)
 _count_lock = threading.Lock()
+
+Plan = namedtuple("Plan", "grid cluster smem aligned")
+
+
+def _check_shape(M, C, F, tm):
+    if M < 1 or F < 1 or not 1 <= C <= MAX_C:
+        raise ValueError(f"the kernel takes M >= 1, F >= 1 and 1 <= C <= {MAX_C}, "
+                         f"got M={M}, C={C}, F={F}")
+    if tm not in ROW_TILES:
+        raise ValueError(f"tm must be one of {ROW_TILES}, got {tm}")
+
+
+def swiglu_plan(M, C, F, tm, sms):
+    """The launch of ``csrc/swiglu_fwd.cu`` for x (M, C) and F hidden
+    units at ``tm`` rows a block on a card of ``sms`` SMs: ``grid``
+    blocks, ``cluster`` of them on the same rows splitting F's 32-unit
+    chunks, ``smem`` bytes of shared memory a block (the x tile of tm rows
+    and STAGES w1 and w2 chunks in bf16, rows padded by 8 elements; the
+    cluster's fp32 partial y reuses them), whether the ``aligned`` 16-byte
+    copies serve (C % 8 == 0 and F % 8 == 0: every 16-byte group of a row
+    lies inside C or F, and the value half of a w1 row starts at byte 2F;
+    the wrapper also needs 16-byte aligned tensors). A block runs 2 tm
+    threads. The kernel takes the grid and the bytes from here and refuses
+    fewer bytes than it stages.
+
+    A block takes an SM of its own (its shared memory), so the cluster is
+    the fewest blocks that put a block on at least half of the card's SMs,
+    and no more than there are chunks: beyond that, splitting F adds a
+    second wave of blocks and the cluster's sum without shortening the
+    first (on the H100 at M=6400, tm=128, clusters of 2 beat 4 and 1;
+    PERF.md)."""
+    _check_shape(M, C, F, tm)
+    tiles, chunks = -(-M // tm), -(-F // CHUNK)
+    cluster = next((s for s in CLUSTER_SIZES if 2 * tiles * s >= sms), CLUSTER_SIZES[-1])
+    cluster = max(s for s in CLUSTER_SIZES if s <= min(cluster, chunks))
+    smem = 2 * (tm * (MAX_C + 8) + STAGES * (MAX_C * (2 * CHUNK + 8) + CHUNK * (MAX_C + 8)))
+    return Plan(tiles * cluster, cluster, smem, C % 8 == 0 and F % 8 == 0)
 
 
 def load_kernel():
     fn = load_library("swiglu_fwd", SOURCES).swiglu_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return fn
 
 
@@ -45,14 +90,10 @@ def _check(x, w1, b1, w2, b2, tm):
         raise ValueError(f"x, w1 and w2 must be bf16, got {x.dtype}, {w1.dtype}, {w2.dtype}")
     if b1.dtype != torch.float32 or b2.dtype != torch.float32:
         raise ValueError(f"b1 and b2 must be fp32, got {b1.dtype}, {b2.dtype}")
-    if M < 1 or F < 1 or not 1 <= C <= MAX_C:
-        raise ValueError(f"the kernel takes M >= 1, F >= 1 and 1 <= C <= {MAX_C}, "
-                         f"got M={M}, C={C}, F={F}")
-    if tm not in ROW_TILES:
-        raise ValueError(f"tm must be one of {ROW_TILES}, got {tm}")
     if any(t.requires_grad for t in (x, w1, b1, w2, b2)):
         raise ValueError("swiglu is forward only (the TPU kernel has no backward); "
                          "an input requires grad")
+    _check_shape(M, C, F, tm)  # the shapes and tiles the kernel takes, on the CPU too
     for t in (w1, b1, w2, b2):
         if t.device != x.device:
             raise ValueError(f"all inputs must be on {x.device}, got {t.device}")
@@ -65,8 +106,8 @@ def swiglu(x, w1, b1, w2, b2, tm=DEFAULT_TILE):
         x: (M, C) bf16 rows; any M >= 1 (every row is written).
         w1: (C, 2F) bf16, gate columns first; b1: (2F,) or (1, 2F) fp32.
         w2: (F, C) bf16; b2: (C,) or (1, C) fp32. C <= 256.
-        tm: rows a block of the kernel owns, one of ``ROW_TILES`` (the CPU
-            path ignores it).
+        tm: rows a block of the kernel owns, one of ``ROW_TILES`` (checked
+            on the CPU too, where the plain version has no tiles).
 
     Returns:
         (M, C) bf16.
@@ -80,11 +121,15 @@ def swiglu(x, w1, b1, w2, b2, tm=DEFAULT_TILE):
     F = w2.shape[0]
     x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
     b1, b2 = b1.reshape(-1).contiguous(), b2.reshape(-1).contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = swiglu_plan(M, C, F, tm, sms)
+    aligned = plan.aligned and all(t.data_ptr() % 16 == 0 for t in (x, w1, w2))
     y = torch.empty((M, C), dtype=torch.bfloat16, device=x.device)
     fn = load_kernel()
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                y.data_ptr(), M, C, F, tm, torch.cuda.current_stream(x.device).cuda_stream)
+                y.data_ptr(), M, C, F, tm, plan.grid, plan.cluster, plan.smem, int(aligned),
+                torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"swiglu_fwd launch failed with CUDA error {rc}")
     with _count_lock:

@@ -22,6 +22,12 @@ are chip_smoke.py's attention phase (B=4, H=4, D=64, T' in {26, 201,
 path's two (training B=32, T'=200, dropout 0.1; the long served bucket
 B=16, T'=601; bf16 MQA). The last line is a JSON object of all times.
 
+With ``--dump`` it times the dropout-mask dump instead
+(``ops/flash_attention.py::dump_keep_mask``, ``csrc/dropout_mask.cu``) at
+DUMP_SHAPES: chip_smoke.py's B=4, H=4, T'=801 and one dump past 2^31
+elements; device and chained ms per call and, by torch.profiler, the
+device kernels a call launches.
+
 With ``--profile`` it runs the flagship model (80 mels, d_model 256, 4
 heads MQA, 8 blocks, seeded random weights) and prints, for a bf16
 training step (B=32 rows of 4-8 s, T' <= 200, dropout 0.1, SpecAugment,
@@ -51,6 +57,7 @@ SWEEP = dict(B=4, H=4, D=64, T=(26, 201, 601, 801), Kh=(1, 4), rate=(0.0, 0.1))
 MAIN_PATH = {"train": dict(B=32, H=4, Kh=1, T=200, D=64, rate=0.1),
              "serve": dict(B=16, H=4, Kh=1, T=601, D=64, rate=0.0)}
 CALLS = 20
+DUMP_SHAPES = ((4, 4, 801), (1, 1, 46341))  # (B, H, T'): the attention phase's; past 2^31 bytes
 ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_")  # in the attention kernels' names
 SR = 16000
 
@@ -131,6 +138,25 @@ def kernel_split(fn, calls=CALLS):
     """{kernel name: device ms per call} of the kernels ``fn`` launches, by
     torch.profiler (which on the card now and then drops events: a
     breakdown, not a time)."""
+    split = {}
+    for e in _key_averages(fn, calls):
+        key = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = re.search(r"^(\w+)\s*[<(]", key)
+        name = name.group(1) if name else key
+        split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return split
+
+
+def device_kernels(fn, calls=CALLS):
+    """{device kernel: launches a call} of ``fn``, by torch.profiler: the
+    fullest of five profiled windows, since on the card the profiler now
+    and then drops a window's events, or some of them (a dropped event
+    shows as a fraction below the true count)."""
+    windows = [{e.key: e.count / calls for e in _key_averages(fn, calls)} for _ in range(5)]
+    return max(windows, key=lambda w: sum(w.values()))
+
+
+def _key_averages(fn, calls):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -138,14 +164,23 @@ def kernel_split(fn, calls=CALLS):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-            name = re.search(r"^(\w+)\s*[<(]", key)
-            name = name.group(1) if name else key
-            split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
-    return split
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def dump_times(fa):
+    """{shape label: {"ms", "chained_ms", "device_kernels"}} of the
+    checkout's dump at DUMP_SHAPES."""
+    result = {}
+    for B, H, T in DUMP_SHAPES:
+        def dump(B=B, H=H, T=T):
+            return fa.dump_keep_mask(B, H, T, 7, 0.1, "cuda")
+        r = result[f"B={B} H={H} T'={T}"] = {
+            "ms": device_ms(dump), "chained_ms": chained_ms(dump),
+            "device_kernels": sum(device_kernels(dump).values())}
+        print(f"dump B={B} H={H} T'={T}: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} "
+              f"ms, {r['device_kernels']:.2f} device kernels a call", flush=True)
+        torch.cuda.empty_cache()
+    return result
 
 
 def attention_inputs(B, H, Kh, T, D, dtype):
@@ -287,8 +322,11 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                         help="root of the checkout whose turkish_asr_torch is timed")
-    parser.add_argument("--profile", action="store_true",
-                        help="profile a training step and a long served forward instead")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--profile", action="store_true",
+                      help="profile a training step and a long served forward instead")
+    mode.add_argument("--dump", action="store_true",
+                      help="time the dropout-mask dump kernel instead")
     args = parser.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -302,8 +340,11 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; checkout {root}", flush=True)
-    result = profile_main_path() if args.profile else kernel_times(fa)
-    print(json.dumps({"root": str(root), "profile" if args.profile else "times": result}))
+    if args.profile:
+        key, result = "profile", profile_main_path()
+    else:
+        key, result = ("dump", dump_times(fa)) if args.dump else ("times", kernel_times(fa))
+    print(json.dumps({"root": str(root), key: result}))
     return result
 
 

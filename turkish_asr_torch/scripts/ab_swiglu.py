@@ -1,28 +1,40 @@
-"""A/B on the card: the fused SwiGLU FFN kernel against the matmul chain
-(forward).
+"""A/B on the card: the fused SwiGLU FFN kernel of one checkout against the
+matmul chain (forward).
 
 Port of scripts/ab_swiglu.py. The chain (``ops/_swiglu.py::swiglu_chain``,
 two bf16 cuBLAS GEMMs and elementwise passes) writes the (M, 2F) hidden to
 device memory between its two products; the hand-written kernel
 (``ops/swiglu.py::swiglu``, ``csrc/swiglu_fwd.cu``) keeps it inside the
 block. The fused plain version (``swiglu_fused_ref``, fp32 products) is
-timed beside them. Each time is CUDA events over n = 50 calls in which
-each call's y is the next call's x, after warm-up, divided by n.
+timed beside them.
 
-Usage: python -m turkish_asr_torch.scripts.ab_swiglu [M] [C] [F]
-(defaults 6400 256 1024: the flagship FFN, d_model 256, d_ff 1024). It
-prints one line per row tile the kernel offers, then the fused plain
-version's line and the chain's. It needs a CUDA card and raises without
-one.
+Usage (by path, so that ``--root`` picks the package it times):
+
+    python turkish_asr_torch/scripts/ab_swiglu.py [--root DIR] [M] [C] [F]
+
+(defaults 6400 256 1024: the flagship FFN, d_model 256, d_ff 1024).
+``--root`` is the root of a checkout of this repository (default: the one
+this file is in); its ``turkish_asr_torch`` is imported and its kernel is
+built there. Two trees compare in one call on one card: a parent commit
+unpacked with ``git archive`` into a git-ignored directory, then parent,
+this tree, this tree, parent.
+
+It prints the card and the checkout, one line per row tile the checkout's
+kernel offers, then the fused plain version's line and the chain's, each
+as device ms per call (20 calls queued behind a spin kernel,
+``ab_attention.device_ms``) and CUDA-event ms over 50 chained calls in
+which each call's y is the next call's x (which also counts the host's
+gaps), and last a JSON object of all times. It needs a CUDA card and
+raises without one.
 """
 
+import argparse
+import json
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
-
-from turkish_asr_torch.ops._swiglu import swiglu_chain, swiglu_fused_ref
-from turkish_asr_torch.ops.swiglu import ROW_TILES, args_from_numpy, swiglu
 
 
 def make_inputs(M, C, F):
@@ -58,31 +70,49 @@ def _max_err(a, b):
 
 
 def main(argv=None):
-    """Runs the A/B; returns {"M", "C", "F", "tiles": {tm: (ms, max err vs
-    chain)}, "plain": (ms, max err vs chain), "chain_ms"}."""
-    argv = sys.argv[1:] if argv is None else argv
-    M = int(argv[0]) if len(argv) > 0 else 6400
-    C = int(argv[1]) if len(argv) > 1 else 256
-    F = int(argv[2]) if len(argv) > 2 else 1024
+    """Runs the A/B; returns {"root", "M", "C", "F", "tiles": {tm: {"ms",
+    "chained_ms", "max_err"}}, "plain": {...}, "chain": {"ms",
+    "chained_ms"}}, max_err against the chain."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                        help="root of the checkout whose turkish_asr_torch is timed")
+    for name, default in (("M", 6400), ("C", 256), ("F", 1024)):
+        parser.add_argument(name, type=int, nargs="?", default=default)
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
     if not torch.cuda.is_available():
         raise RuntimeError("the SwiGLU A/B times the CUDA kernel and needs a CUDA card; "
                            "torch.cuda.is_available() is False")
-    x, *args = args_from_numpy(*make_inputs(M, C, F), "cuda")
-    y0 = swiglu_chain(x, *args)
-    result = {"M": M, "C": C, "F": F, "tiles": {}}
-    for tm in ROW_TILES:
-        def fused(a, *rest, tm=tm):
-            return swiglu(a, *rest, tm=tm)
-        err = _max_err(fused(x, *args), y0)
-        t = timeit_chained(fused, x, args)
-        result["tiles"][tm] = (t, err)
-        print(f"cuda tm={tm:3d}: {t:.4f} ms (max err vs chain {err:.2e})", flush=True)
-    err = _max_err(swiglu_fused_ref(x, *args), y0)
-    t = timeit_chained(swiglu_fused_ref, x, args)
-    result["plain"] = (t, err)
-    print(f"fused plain: {t:.4f} ms (max err vs chain {err:.2e})", flush=True)
-    result["chain_ms"] = timeit_chained(swiglu_chain, x, args)
-    print(f"chain: {result['chain_ms']:.4f} ms M={M} C={C} F={F}", flush=True)
+    from turkish_asr_torch.ops import swiglu as sw
+    from turkish_asr_torch.ops._swiglu import swiglu_chain, swiglu_fused_ref
+    from turkish_asr_torch.scripts.ab_attention import device_ms
+    if not Path(sw.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {sw.__file__}, not the checkout at {root}; run this "
+                           f"file by its path, not with -m")
+    M, C, F = args.M, args.C, args.F
+    print(f"{torch.cuda.get_device_name(0)}; checkout {root}", flush=True)
+    x, *rest = sw.args_from_numpy(*make_inputs(M, C, F), "cuda")
+    y0 = swiglu_chain(x, *rest)
+    result = {"root": str(root), "M": M, "C": C, "F": F, "tiles": {}}
+
+    def times(fn):
+        return {"ms": device_ms(lambda: fn(x, *rest)), "chained_ms": timeit_chained(fn, x, rest)}
+
+    for tm in sw.ROW_TILES:
+        def fused(a, *more, tm=tm):
+            return sw.swiglu(a, *more, tm=tm)
+        r = result["tiles"][tm] = dict(times(fused), max_err=_max_err(fused(x, *rest), y0))
+        print(f"cuda tm={tm:3d}: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} ms "
+              f"(max err vs chain {r['max_err']:.2e})", flush=True)
+    r = result["plain"] = dict(times(swiglu_fused_ref),
+                               max_err=_max_err(swiglu_fused_ref(x, *rest), y0))
+    print(f"fused plain: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} ms "
+          f"(max err vs chain {r['max_err']:.2e})", flush=True)
+    r = result["chain"] = times(swiglu_chain)
+    print(f"chain: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} ms M={M} C={C} F={F}",
+          flush=True)
+    print(json.dumps(result))
     return result
 
 

@@ -8,15 +8,19 @@ configuration and endpoint surface as the reference API:
   extension, 503 when the model is missing, 500 on a transcription error
   (``?timestamps=1`` adds word timings)
 - POST /transcribe/batch  -> {results: [{filename, text, error}]}; one
-  bucket-collated batched forward for all uploads. A fault in that forward
-  is a 500; nothing is retried file by file.
+  bucket-collated batched forward for all uploads. If that forward raises,
+  each upload is transcribed on its own and carries its own error, as the
+  JAX server does: the request still answers 200.
 
 Transport: FastAPI + uvicorn when installed, else a stdlib
 ThreadingHTTPServer on the same routes. The model is warmed at startup
 with one dummy transcription, which also builds the CUDA kernels.
 ASR_BATCH_WINDOW_MS > 0 turns on cross-request micro-batching.
 
-Run: ``python -m turkish_asr_torch.serve.server`` (CUDA).
+Run: ``python -m turkish_asr_torch.serve.server`` (CUDA). The model path
+defaults to ``./runs/best_model.pt``, the file that ``python -m
+turkish_asr_torch.main`` writes with its defaults; ``ASR_MODEL_PATH``
+names another ``.pt``.
 """
 
 import json
@@ -98,10 +102,12 @@ class ServerConfig:
     D_MODEL and N_BLOCKS have no counterpart here, as they have none on
     the JAX server's ``.pt`` path; N_HEADS is used when the checkpoint
     stores none. USE_BEAM_SEARCH=true is refused (beam search is not
-    ported), so the beam and LM-fusion settings have none either."""
+    ported), so the beam and LM-fusion settings have none either. The
+    model path defaults to the port trainer's ``best_model.pt`` (the JAX
+    server's default names its own trainer's ``best_model.ckpt``)."""
 
     def __init__(self):
-        self.MODEL_PATH = os.environ.get("ASR_MODEL_PATH", "./runs/best_model.ckpt")
+        self.MODEL_PATH = os.environ.get("ASR_MODEL_PATH", "./runs/best_model.pt")
         self.N_HEADS = int(os.environ.get("N_HEADS", "4"))
         self.USE_BEAM_SEARCH = os.environ.get("USE_BEAM_SEARCH", "false").lower() == "true"
         self.LM_PATH = os.environ.get("ASR_LM_PATH") or None
@@ -218,7 +224,9 @@ class ASRService:
     def transcribe_batch(self, uploads):
         """All uploads through one batched bucket-collated forward
         (``transcribe_files``), with per-file load/decode errors in the
-        results. A fault in the batched forward itself is a 500."""
+        results. If the batched forward itself raises, each file is
+        transcribed on its own (``transcribe``), so one fault does not
+        lose every upload's text: 200 with each upload's text or error."""
         if self.asr is None:
             return 503, {"detail": "Model not loaded"}
         results = [None] * len(uploads)
@@ -236,8 +244,16 @@ class ASRService:
             if paths:
                 try:
                     texts, errors = self.asr.transcribe_files(paths, return_errors=True)
-                except Exception as e:  # noqa: BLE001 — request boundary
-                    return 500, {"detail": f"Batched transcription failed: {e}"}
+                except Exception as e:  # noqa: BLE001 — fall back to one file at a time
+                    print(f"Batched transcription failed ({e}); falling back to per-file")
+                    texts, errors = [], []
+                    for p in paths:
+                        try:
+                            texts.append(self.asr.transcribe(p))
+                            errors.append(None)
+                        except Exception as file_error:  # noqa: BLE001 — this upload's error
+                            texts.append("")
+                            errors.append(str(file_error))
                 for slot, text, err in zip(slots, texts, errors):
                     results[slot] = {"filename": uploads[slot][0], "text": text,
                                      "error": err}
