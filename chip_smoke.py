@@ -88,6 +88,27 @@ Phases; any failure raises and the script exits non-zero.
    and 0.99 frame-argmax agreement of the plain path's, and fp32 on the
    card against the CPU.
 
+8. Beam search: the served model (7's weights) behind ASRService with
+   USE_BEAM_SEARCH=true, BEAM_WIDTH=16 and bench config 4's 400-word
+   word ARPA (trie fusion through the char tokenizer): POST /transcribe
+   (8 s) and /transcribe/batch (four 8 s files, one forward) answer 200
+   with the texts transcribe / transcribe_files give in the process, and
+   the attention forward launches 8 times a forward; each request's ms
+   split into forward and beam. The host beam (no LM) on two 1 s files.
+   Then log-probs of B tones of 8 s (the served bf16 forward, log_softmax
+   in fp32) through three searches at W=16 on the card, each against the
+   same function on the CPU on the same log-probs: (a) no LM, (b) the
+   400-word ARPA's trie tables, (c) the production ARPA's hash tables
+   (100k words, order 4, ~1.05M n-grams; its generation, parse and build
+   seconds printed). The best beam's ids must be identical wherever the
+   CPU's two best scores differ by more than 1e-4 (the count inside that
+   margin printed), and the best scores agree within 1e-3. One search of
+   each runs under torch.cuda.set_sync_debug_mode("error"), so a host sync
+   in it fails the phase. Printed for B=16 and B=128: wall and device ms
+   a decode (median of BEAM_REPS), decode RTFx, and at B=16 the device
+   kernels a decode and a frame and their summed ms (torch.profiler).
+   A JSON line {"beam": ...} holds these numbers.
+
 The last three lines are the card, the kernels (launch counts from the
 training run, errors, chained and single-call times, bound_ms and
 bound_by from kernel_bounds, library_ms: the one torch call that computes
@@ -137,6 +158,10 @@ DUMP_LARGE = (46341, 65537)  # T' at B=H=1: past 2^31 (2.1 GB) and past 2^32 ele
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 TRAIN_EPOCHS = 5
+BEAM_WIDTH = 16
+BEAM_BATCHES = (16, 128)  # a served batch, and bench.py's BATCH
+BEAM_SECONDS = 8
+BEAM_REPS = 3
 WORDS = ("merhaba", "evet", "hayır", "bir", "iki", "üç", "dört", "beş", "altı", "yedi",
          "sekiz", "dokuz", "on", "güneş", "deniz", "kitap")
 
@@ -1031,6 +1056,263 @@ def serving_phase(workdir):
     return launches
 
 
+def _beam_times(search, B):
+    """One decode's wall ms (host clock, to the synchronize), device ms
+    (CUDA events around it: the stream's span, launch gaps included), busy
+    ms (the profiler's sum of its kernels' times) and kernels a decode
+    (the profiler), medians over BEAM_REPS decodes."""
+    search()
+    torch.cuda.synchronize()
+    wall, events = [], []
+    for _ in range(BEAM_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        search()
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    out = {"B": B, "wall_ms": statistics.median(wall), "device_ms": statistics.median(events)}
+    out["rtfx"] = B * BEAM_SECONDS / (out["wall_ms"] / 1e3)
+    if B == BEAM_BATCHES[0]:
+        out["kernels"], out["busy_ms"] = _profile_decode(search)
+    return out
+
+
+def _profile_decode(search):
+    """(device kernels, their summed ms) of one decode by torch.profiler:
+    the fuller of two profiled decodes, since on the card the profiler now
+    and then drops events."""
+    from torch.profiler import ProfilerActivity, profile
+    best = (0, 0.0)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            search()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        best = max(best, (sum(e.count for e in evts),
+                          sum(e.self_device_time_total for e in evts) / 1e3))
+    return best
+
+
+def _beam_against_cpu(name, lp, lens, kw_card, kw_cpu):
+    """The card's search against the same function on the CPU, on the
+    same log-probs: the best beam's ids must be identical wherever the
+    CPU's two best final scores differ by more than 1e-4, and the best
+    scores agree within 1e-3. Returns (utterances inside that margin,
+    max |best score card - cpu|)."""
+    from turkish_asr_torch.ops.beam_search import ctc_beam_search
+    L = min(lp.shape[1], 512)
+    card = ctc_beam_search(lp, lens, beam_width=BEAM_WIDTH, max_prefix_len=L,
+                           return_all_beams=True, **kw_card)
+    cpu = ctc_beam_search(lp.cpu(), lens.cpu(), beam_width=BEAM_WIDTH, max_prefix_len=L,
+                          return_all_beams=True, **kw_cpu)
+    ids_g, cnt_g, sc_g = (x.cpu() for x in card)
+    ids_c, cnt_c, sc_c = cpu
+    top2 = sc_c.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    bg, bc = sc_g.argmax(1), sc_c.argmax(1)
+    rows = torch.arange(lp.shape[0])
+    same = ((cnt_g[rows, bg] == cnt_c[rows, bc])
+            & (ids_g[rows, bg] == ids_c[rows, bc]).all(dim=1))
+    score_err = float((sc_g.max(1).values - sc_c.max(1).values).abs().max())
+    n_close = int((~clear).sum())
+    print(f"beam {name}: card vs cpu at B={lp.shape[0]}, W={BEAM_WIDTH}: best ids identical in "
+          f"{int((same & clear).sum())} of {int(clear.sum())} utterances outside the 1e-4 "
+          f"margin ({n_close} inside it); max|best score card - cpu| = {score_err:.3e}; "
+          f"mean length {float(cnt_c[rows, bc].float().mean()):.1f} tokens", flush=True)
+    if not bool(same[clear].all()) or score_err > 1e-3:
+        raise AssertionError(f"beam {name}: the card's search disagrees with the CPU's")
+    return n_close, score_err
+
+
+def _timed(fn, log, key):
+    """fn, with the ms of each call (to a synchronize) appended to log[key]."""
+    def wrapped(*args, **kwargs):
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.setdefault(key, []).append((time.perf_counter() - start) * 1e3)
+        return out
+    return wrapped
+
+
+def beam_phase(workdir):
+    """The served beam path with LM fusion, the three decoders against the
+    CPU, the sync-free frame loop, and the decode's times and launches.
+    Returns (the attention forward's launches on the served beam path,
+    the phase's numbers)."""
+    from turkish_asr_torch.audio.wavio import write_wav
+    from turkish_asr_torch.data.tokenizer import TurkishTokenizer
+    from turkish_asr_torch.decode import lm as lmmod
+    from turkish_asr_torch.decode.beam import CTCBeamDecoder
+    from turkish_asr_torch.inference import ASRInference
+    from turkish_asr_torch.ops.beam_search import ctc_beam_search, prepare_lm
+    from turkish_asr_torch.ops.flash_attention import flash_attention
+    from turkish_asr_torch.scripts.synthetic_arpa import PRODUCTION, synthetic_word_arpa
+    from turkish_asr_torch.serve.server import ASRService, ServerConfig, make_stdlib_server
+
+    start_phase = time.perf_counter()
+    pt = os.path.join(workdir, "flagship.pt")  # the serving phase's seeded weights
+    arpa400 = os.path.join(workdir, "words400.arpa")
+    synthetic_word_arpa(arpa400)
+    wav = {}
+    for name, seconds, seed in (("s8", 8, 20), ("q1", 8, 21), ("q2", 8, 22), ("q3", 8, 23),
+                                ("q4", 8, 24), ("h1", 1, 25), ("h2", 1, 26)):
+        wav[name] = os.path.join(workdir, f"beam_{name}.wav")
+        write_wav(wav[name], _tone(seconds, seed), SR)
+
+    # Served beam: USE_BEAM_SEARCH=true, BEAM_WIDTH=16, the 400-word ARPA
+    # (bench config 4: "auto" takes the trie tables through the char tokenizer).
+    cfg = ServerConfig()
+    cfg.MODEL_PATH, cfg.USE_BEAM_SEARCH, cfg.BEAM_WIDTH, cfg.LM_PATH = pt, True, BEAM_WIDTH, arpa400
+    _reset_counts()
+    service = ASRService(cfg, warmup=True, device="cuda")
+    asr = service.asr
+    if asr is None or asr.decoder.__class__.__name__ != "DeviceBeamDecoder" \
+            or "lm_trie" not in asr.decoder._lm_kwargs:
+        raise AssertionError("the beam service did not load the trie-fused device beam")
+    # A request's ms split into its forwards and its beam decodes (a
+    # single file's decode calls decode_batch too).
+    split = {"forward": [], "beam": []}
+    asr._forward_batch = _timed(asr._forward_batch, split, "forward")
+    asr.decoder.decode_batch = _timed(asr.decoder.decode_batch, split, "beam")
+    server = make_stdlib_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def read(name):
+        with open(wav[name], "rb") as f:
+            return f.read()
+
+    def post(route, files):
+        marks = {k: len(v) for k, v in split.items()}
+        status, payload, ms = _post(base + route, files)
+        return status, payload, ms, *(sum(split[k][marks[k]:]) for k in ("forward", "beam"))
+
+    batch_names = ("q1", "q2", "q3", "q4")  # one 8 s bucket: one forward, one decode
+    try:
+        # Each request twice: the first at a shape also picks the library's
+        # convolution and GEMM algorithms; the second is the one kept.
+        first = [post("/transcribe", [("file", "s8.wav", read("s8"))])[2]]
+        status, single, ms_single, fwd, beam_ms = post("/transcribe",
+                                                      [("file", "s8.wav", read("s8"))])
+        batch_files = [("files", n + ".wav", read(n)) for n in batch_names]
+        first.append(post("/transcribe/batch", batch_files)[2])
+        status_b, batch, ms_batch, fwd_b, beam_b = post("/transcribe/batch", batch_files)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    launches = flash_attention.launches
+    served = {"single_ms": ms_single, "forward_ms": fwd, "beam_ms": beam_ms,
+              "batch_ms": ms_batch, "batch_forward_ms": fwd_b, "batch_beam_ms": beam_b,
+              "first_single_ms": first[0], "first_batch_ms": first[1]}
+    results = batch.get("results") or []
+    if status != 200 or status_b != 200 or len(results) != 4 \
+            or any(r["error"] is not None for r in results):
+        raise AssertionError(f"served beam: {status} {single}; {status_b} {batch}")
+    want_single = asr.transcribe(wav["s8"])
+    want_batch = asr.transcribe_files([wav[n] for n in batch_names])
+    if single["text"] != want_single or [r["text"] for r in results] != want_batch:
+        raise AssertionError(f"served beam texts {single['text']!r}, {results} differ from the "
+                             f"in-process {want_single!r}, {want_batch}")
+    print(f"served beam (W={BEAM_WIDTH}, trie fusion, 400-word ARPA): POST /transcribe 8 s "
+          f"{ms_single:.2f} ms = forward {served['forward_ms']:.2f} + beam "
+          f"{served['beam_ms']:.2f} ms + the rest; /transcribe/batch 4 files {ms_batch:.2f} ms "
+          f"= forward {served['batch_forward_ms']:.2f} + beam {served['batch_beam_ms']:.2f} ms "
+          f"(the first of each: {first[0]:.2f}, {first[1]:.2f} ms); texts equal the "
+          f"in-process transcribe / transcribe_files; {launches} attention forward launches "
+          f"(warmup and 4 requests); text={single['text'][:40]!r}", flush=True)
+    if launches < 5 * 8:
+        raise AssertionError(f"the served beam path launched the attention forward {launches} "
+                             f"times over five forwards of 8 blocks")
+
+    # The host beam (no LM): a Python loop, on two 1 s files only.
+    host = ASRInference(pt, use_beam_search=True, beam_width=BEAM_WIDTH, device="cuda")
+    if not isinstance(host.decoder, CTCBeamDecoder):
+        raise AssertionError("beam search without an LM must take the host beam")
+    t0 = time.perf_counter()
+    texts = host.transcribe_files([wav["h1"], wav["h2"]])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    # One batched forward each time, so the same logits and texts (a B=1
+    # forward rounds bf16 otherwise, and may move a beam).
+    if texts != host.transcribe_files([wav["h1"], wav["h2"]]) or not all(
+            isinstance(t, str) for t in texts):
+        raise AssertionError(f"the host beam's texts are not repeatable: {texts}")
+    print(f"host beam (no LM), two 1 s files in one batch: {host_ms:.2f} ms, "
+          f"texts {[t[:20] for t in texts]}", flush=True)
+
+    # Log-probs: B tones of 8 s through the served model's bf16 forward.
+    tok = TurkishTokenizer()
+    lps = {}
+    for B in BEAM_BATCHES:
+        x = np.stack([_tone(BEAM_SECONDS, 1000 + i) for i in range(B)])
+        logits, out_lens = asr._forward_batch(x, np.full((B,), x.shape[1], np.int32))
+        lps[B] = (logits.float().log_softmax(-1), out_lens)
+    T = lps[BEAM_BATCHES[0]][0].shape[1]
+
+    t0 = time.perf_counter()
+    arpa100k = os.path.join(workdir, "words100k.arpa")
+    synthetic_word_arpa(arpa100k, **PRODUCTION)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model100k = lmmod.ArpaLanguageModel(arpa100k)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hashed = lmmod.build_hash_fusion_tables(model100k, tok, 56)
+    build_s = time.perf_counter() - t0
+    trie = lmmod.build_trie_fusion_tables(lmmod.ArpaLanguageModel(arpa400), tok, 56)
+    table_mb = sum(hashed[k].nbytes for k in ("keys", "vals", "pnext", "wq", "tok_kind", "qwid"))
+    print(f"beam (c) ARPA: {len(model100k.logprob)} n-grams, {hashed['n_words']} words; "
+          f"generated {gen_s:.3f} s, parsed {parse_s:.3f} s, hash tables built {build_s:.3f} s "
+          f"({hashed['table_size']} slots, {hashed['trie_nodes']} trie nodes, "
+          f"{table_mb / 1e6:.1f} MB as built)", flush=True)
+
+    decoders = {"a_no_lm": {},
+                "b_trie_400": {"lm_trie": trie, "lm_start_state": int(trie["start_h"])},
+                "c_hash_100k": {"lm_hash": hashed}}
+    numbers = {"served": served, "host_beam_ms": host_ms, "T": T,
+               "arpa_100k": {"parse_s": parse_s, "build_s": build_s, "gen_s": gen_s}}
+    for name, kw in decoders.items():
+        on = {}
+        for dev in ("cuda", "cpu"):
+            mode, tables = prepare_lm(torch.device(dev), lm_trie=kw.get("lm_trie"),
+                                      lm_hash=kw.get("lm_hash"))
+            on[dev] = dict(kw, **{f"lm_{mode}": tables}) if mode else {}
+        lp, lens = lps[BEAM_BATCHES[0]]
+        n_close, score_err = _beam_against_cpu(name, lp, lens, on["cuda"], on["cpu"])
+
+        def search(lp=lp, lens=lens, kw=on["cuda"]):
+            return ctc_beam_search(lp, lens, beam_width=BEAM_WIDTH, return_all_beams=True,
+                                   max_prefix_len=min(lp.shape[1], 512), **kw)
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the search raises
+        try:
+            search()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        entry = {"n_close": n_close, "score_err": score_err}
+        for B in BEAM_BATCHES:
+            lp, lens = lps[B]
+            t = _beam_times(lambda lp=lp, lens=lens: search(lp, lens), B)
+            entry[f"B{B}"] = t
+            extra = ""
+            if "kernels" in t:
+                extra = (f", busy {t['busy_ms']:.3f} ms (idle {1 - t['busy_ms'] / t['device_ms']:.3f}),"
+                         f" {t['kernels']:.0f} kernels a decode = {t['kernels'] / T:.1f} a frame")
+            print(f"beam {name} B={B} x {BEAM_SECONDS} s (T'={T}): wall {t['wall_ms']:.3f} ms, "
+                  f"device {t['device_ms']:.3f} ms{extra}; decode RTFx {t['rtfx']:.1f}; no host "
+                  f"sync in the search", flush=True)
+        numbers[name] = entry
+    print(f"beam phase: {time.perf_counter() - start_phase:.3f} s", flush=True)
+    return launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1060,6 +1342,7 @@ def main():
         serve_trained(pt)
         _reset_counts()
         serving_launches = serving_phase(workdir)
+        beam_launches, beam = beam_phase(workdir)
     print(f"all phases: {time.perf_counter() - start:.3f} s", flush=True)
 
     replaces = {
@@ -1101,6 +1384,7 @@ def main():
             entry["mha"] = {k: times["mha"][name][k] for k in keys}
         if name == "flash_attention_fwd":
             entry["serving_launches"] = serving_launches
+            entry["beam_serving_launches"] = beam_launches
             entry["serving"] = {k: times["serve"][name][k] for k in keys}
         if name in ("ctc_fwd", "ctc_bwd"):
             entry["kernel_ms"] = t["kernel_ms"]
@@ -1112,6 +1396,7 @@ def main():
             entry.update(chain_ms=t["chain_ms"], on_main_path=False,
                          path="python turkish_asr_torch/scripts/ab_swiglu.py")
         kernels.append(entry)
+    print(json.dumps({"beam": beam}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

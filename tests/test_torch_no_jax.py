@@ -48,6 +48,12 @@ SLICE_MODULES = [
     "turkish_asr_torch.scripts.ab_attention",
     "turkish_asr_torch.scripts.ab_ctc",
     "turkish_asr_torch.scripts.dump_floor",
+    "turkish_asr_torch.decode",
+    "turkish_asr_torch.decode.lm",
+    "turkish_asr_torch.decode.beam",
+    "turkish_asr_torch.decode.factory",
+    "turkish_asr_torch.ops.beam_search",
+    "turkish_asr_torch.scripts.synthetic_arpa",
 ]
 
 

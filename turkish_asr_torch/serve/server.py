@@ -96,24 +96,35 @@ class MicroBatcher:
 
 
 class ServerConfig:
-    """Env-var server configuration: the JAX server's names and defaults
-    for what the greedy ``.pt`` path reads. A ``.pt`` carries its own
-    architecture (tensor shapes and stored config), so N_MEL_CHANNELS,
-    D_MODEL and N_BLOCKS have no counterpart here, as they have none on
-    the JAX server's ``.pt`` path; N_HEADS is used when the checkpoint
-    stores none. USE_BEAM_SEARCH=true is refused (beam search is not
-    ported), so the beam and LM-fusion settings have none either. The
-    model path defaults to the port trainer's ``best_model.pt`` (the JAX
-    server's default names its own trainer's ``best_model.ckpt``)."""
+    """Env-var server configuration: the JAX server's names and defaults.
+    A ``.pt`` carries its own architecture (tensor shapes and stored
+    config), so N_MEL_CHANNELS, D_MODEL and N_BLOCKS have no counterpart
+    here, as they have none on the JAX server's ``.pt`` path; N_HEADS is
+    used when the checkpoint stores none. USE_BEAM_SEARCH=true serves the
+    beam of width BEAM_WIDTH, LM-fused with the ARPA at ASR_LM_PATH
+    through ASR_LM_FUSION (auto/device/hash/host, the CLI's --lm_fusion),
+    ASR_LM_WEIGHT and ASR_WORD_BONUS. The model path defaults to the port
+    trainer's ``best_model.pt`` (the JAX server's default names its own
+    trainer's ``best_model.ckpt``)."""
 
     def __init__(self):
         self.MODEL_PATH = os.environ.get("ASR_MODEL_PATH", "./runs/best_model.pt")
         self.N_HEADS = int(os.environ.get("N_HEADS", "4"))
         self.USE_BEAM_SEARCH = os.environ.get("USE_BEAM_SEARCH", "false").lower() == "true"
+        self.BEAM_WIDTH = int(os.environ.get("BEAM_WIDTH", "10"))
         self.LM_PATH = os.environ.get("ASR_LM_PATH") or None
+        # Normalized and checked like the CLI's choices: a typo would miss
+        # every fusion branch and serve the sequential host beam.
+        self.LM_FUSION = os.environ.get("ASR_LM_FUSION", "auto").strip().lower()
+        if self.LM_FUSION not in ("auto", "device", "hash", "host"):
+            raise ValueError(f"ASR_LM_FUSION={self.LM_FUSION!r} — must be one of "
+                             "auto/device/hash/host (the CLI's --lm_fusion choices)")
+        self.LM_WEIGHT = float(os.environ.get("ASR_LM_WEIGHT", "0.3"))
+        self.WORD_BONUS = float(os.environ.get("ASR_WORD_BONUS", "0.5"))
         if self.LM_PATH and not self.USE_BEAM_SEARCH:
             print("WARNING: ASR_LM_PATH is set but USE_BEAM_SEARCH is not 'true' — "
-                  "the LM is IGNORED on the greedy path.")
+                  "the LM is IGNORED on the greedy path. Set USE_BEAM_SEARCH=true to "
+                  "serve LM-fused beam decoding.")
         self.TOKENIZER_PATH = os.environ.get("ASR_TOKENIZER_PATH") or None
         self.HOST = os.environ.get("ASR_HOST", "0.0.0.0")
         self.PORT = int(os.environ.get("ASR_PORT", "8000"))
@@ -133,10 +144,6 @@ class ASRService:
     def __init__(self, config=None, warmup=True, device="cuda"):
         self.config = config or ServerConfig()
         self.device = resolve_device(device)
-        if self.config.USE_BEAM_SEARCH:
-            raise NotImplementedError(
-                "USE_BEAM_SEARCH=true: beam search is not ported to "
-                "turkish_asr_torch yet (ROADMAP.md)")
         self.asr = None
         self.batcher = None
         if not os.path.exists(self.config.MODEL_PATH):
@@ -144,9 +151,13 @@ class ASRService:
             return
         from turkish_asr_torch.inference import ASRInference
         try:
+            cfg = self.config
             self.asr = ASRInference(
-                model_path=self.config.MODEL_PATH, n_heads=self.config.N_HEADS,
-                tokenizer_path=self.config.TOKENIZER_PATH, device=self.device)
+                model_path=cfg.MODEL_PATH, n_heads=cfg.N_HEADS,
+                use_beam_search=cfg.USE_BEAM_SEARCH, beam_width=cfg.BEAM_WIDTH,
+                lm_path=cfg.LM_PATH, lm_fusion=cfg.LM_FUSION, lm_weight=cfg.LM_WEIGHT,
+                word_bonus=cfg.WORD_BONUS, tokenizer_path=cfg.TOKENIZER_PATH,
+                device=self.device)
         except Exception as e:  # noqa: BLE001 — serve anyway, 503 (reference)
             print(f"Failed to load model: {e}")
             return

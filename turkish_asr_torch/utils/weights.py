@@ -169,14 +169,26 @@ def config_from_state_dict(sd, n_heads=4, n_mels=None, masked_norm=False):
                        dropout=0.0, use_mqa=use_mqa, masked_norm=masked_norm)
 
 
-def load_pt(path, device, n_heads=4):
+def load_pt(path, device, n_heads=4, allow_pickle=False):
     """Read a reference-format ``.pt`` (``{"model_state_dict", "config"}``
-    or a bare state dict) with ``weights_only=True``.
+    or a bare state dict) with ``weights_only=True``. When that fails
+    and ``allow_pickle`` is set (the CLI's ``--trust_checkpoint``), the
+    file is unpickled in full: only for trusted files, as
+    turkish_asr_tpu/utils/torch_import.py:141-158 does.
 
     Returns (cfg, model): an eval-mode ConformerCTC on ``device`` loaded
     with ``strict=True``.
     """
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:
+        if not allow_pickle:
+            raise RuntimeError(
+                f"Safe (weights_only) load of {path} failed: {e}\n"
+                "The checkpoint contains non-tensor pickled payloads (e.g. embedded "
+                "config/optimizer objects). If the file is trusted, re-run with "
+                "--trust_checkpoint (allow_pickle=True) to permit full unpickling.") from e
+        blob = torch.load(path, map_location="cpu", weights_only=False)
     if "model_state_dict" in blob:
         sd, stored = blob["model_state_dict"], blob.get("config") or {}
     else:
