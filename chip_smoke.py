@@ -109,7 +109,30 @@ Phases; any failure raises and the script exits non-zero.
    kernels a decode and a frame and their summed ms (torch.profiler).
    A JSON line {"beam": ...} holds these numbers.
 
-The last three lines are the card, the kernels (launch counts from the
+9. Checkpoint boundary: the resumed model of phase 5 written as a JAX
+   ``.ckpt`` by the port (``save_jax_checkpoint_file``, with ``opt_named``
+   from its optimizer), served by ``ASRInference`` with the ``.pt``'s
+   logits bit for bit (8 s and 24 s) and by the HTTP server with the same
+   text, then resumed from a directory whose newest checkpoint is that
+   ``.ckpt``: start epoch, global step, Adam moments and count and the
+   weights equal the ``.pt`` resume's bit for bit, and 2 more steps run.
+10. Remat: one bf16 training step at B=32, T' <= 200 for each of no
+   recomputation, ``--remat_policy full`` and ``dots``: wall ms (median of
+   5), peak memory, attention forward launches (8, 16, 16 a step); fp32
+   gradients of ``dots`` within 1e-3 of ``full`` (of each tensor's largest
+   element, floored as in the gradient check).
+11. Profile: 3 steps with ``--profile_dir``; the Chrome trace names the
+   attention forward and backward and the CTC forward and backward kernels.
+12. Export: ``python -m turkish_asr_torch.export_model --format export``
+   of the ``.ckpt`` on the card (its own check: 1e-4), loaded in this
+   process and run at B=2 x T=200 and B=16 x 24 s: within 1e-4 of the eager
+   fp32 model, and exactly 8 attention forward launches a forward
+   (``export_launches`` in the kernels line); then ``--format torch``.
+13. Memorization: ``turkish_asr_torch/scripts/overfit.py`` on the card in
+   bf16: loss under 0.1 after 300 steps, the five words decoded back.
+
+Each phase prints its seconds. The last four lines are a JSON line of
+phases 9-13's numbers, then the card, the kernels (launch counts from the
 training run, errors, chained and single-call times, bound_ms and
 bound_by from kernel_bounds, library_ms: the one torch call that computes
 the same function, or null where none does; kernel_ms for the CTC
@@ -118,6 +141,7 @@ MHA shape's times under "mha") and {"ok": true, "device": {...}}.
 """
 
 import json
+import logging
 import math
 import os
 import statistics
@@ -736,7 +760,8 @@ def _write_corpus(root, n):
 
 
 def train_phase(workdir):
-    """Returns (the kernel counts of the main training run, the final .pt)."""
+    """Returns (the kernel counts of the main training run, the final .pt,
+    the resumed run's Trainer)."""
     from turkish_asr_torch.main import main as train_main
     from turkish_asr_torch.train.trainer import Trainer
 
@@ -804,7 +829,7 @@ def train_phase(workdir):
                              f"optimizer steps, losses {accum.losses}")
     print(f"--accumulation_steps 2: {micro} micro-steps, {accum.global_step} optimizer steps, "
           f"losses {[round(x, 4) for x in accum.losses]}", flush=True)
-    return counts, os.path.join(run, "turkish_conformer_final.pt")
+    return counts, os.path.join(run, "turkish_conformer_final.pt"), resumed
 
 
 def gradient_check():
@@ -1313,6 +1338,321 @@ def beam_phase(workdir):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-13: the JAX checkpoint boundary, remat policies, the trace
+# hook, torch.export, memorization.
+
+FLAGSHIP = dict(n_mels=80, d_model=256, n_heads=4, n_blocks=8)
+REMAT_POLICIES = ("none", "full", "dots")
+REMAT_REPS = 5
+PROFILED_KERNELS = {"flash_attention_fwd": ("flash_fwd_kernel",),
+                    "flash_attention_bwd": ("flash_bwd_dq", "flash_bwd_dkdv"),
+                    "ctc_fwd": ("ctc_fwd_kernel",), "ctc_bwd": ("ctc_bwd_kernel",)}
+
+
+def _train_batch(B, seed, seconds=8):
+    """A training batch of B tones of 4 to ``seconds`` s in the ``seconds``
+    bucket (T' <= 200 at 8 s), ragged targets of up to 64 labels."""
+    rng = np.random.default_rng(seed)
+    wav = np.zeros((B, seconds * SR), np.float32)
+    lens = np.zeros(B, np.int32)
+    for i, s in enumerate(rng.uniform(4.0, seconds, B)):
+        x = _tone(s, seed * 100 + i)
+        wav[i, :x.size], lens[i] = x, x.size
+    return {"waveforms": wav, "wav_lengths": lens,
+            "targets": rng.integers(1, 56, (B, 64)).astype(np.int32),
+            "target_lengths": rng.integers(10, 64, B).astype(np.int32),
+            "sample_mask": np.ones(B, np.float32)}
+
+
+def _flagship_trainer(argv, model=None, steps=100):
+    """A Trainer built as turkish_asr_torch.main builds one (flagship, char
+    tokenizer, bf16 unless argv says fp32), without data loaders."""
+    from turkish_asr_torch.data.tokenizer import CharTokenizer
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    from turkish_asr_torch.train.optim import make_optimizer
+    from turkish_asr_torch.train.trainer import Trainer
+    from turkish_asr_torch.utils.config import get_config
+    config = get_config(["--d_model", "256", "--n_heads", "4", "--n_blocks", "8",
+                         "--learning_rate", "1e-3", *argv])
+    tok = CharTokenizer()
+    if model is None:
+        cfg = ModelConfig(**FLAGSHIP, n_classes=tok.vocab_size, dropout=config.encoder_dropout)
+        model = init_model(cfg, torch.Generator().manual_seed(config.seed))
+    model = model.cuda()
+    optimizer, schedule = make_optimizer(
+        [p for p in model.parameters() if p.requires_grad], config.learning_rate,
+        config.weight_decay, steps, pct_start=0.1, gradient_clip=config.gradient_clip,
+        accumulation_steps=config.accumulation_steps)
+    return Trainer(model, optimizer, schedule, config, logging.getLogger("chip_smoke"),
+                   tokenizer=tok, device="cuda", accumulation_steps=config.accumulation_steps,
+                   compute_dtype=torch.bfloat16 if config.precision == "bf16" else torch.float32,
+                   augment=config.augment)
+
+
+def ckpt_phase(workdir, trained):
+    """The trained model as a JAX .ckpt written by the port: served through
+    ASRInference and the HTTP server with the .pt path's logits and texts,
+    and resumed with the .pt resume's state, bit for bit."""
+    import shutil
+    from turkish_asr_torch.audio.wavio import write_wav
+    from turkish_asr_torch.inference import ASRInference
+    from turkish_asr_torch.serve.server import ASRService, ServerConfig, make_stdlib_server
+    from turkish_asr_torch.train.checkpoint import save_jax_checkpoint_file
+    from turkish_asr_torch.utils.weights import jax_trees_from_state_dict, opt_named_from_optimizer
+
+    tr = trained
+    epoch = tr.config.epochs
+    pt_dir, ckpt_dir = os.path.join(workdir, "resume_pt"), os.path.join(workdir, "resume_ckpt")
+    os.makedirs(pt_dir)
+    os.makedirs(ckpt_dir)
+    src = os.path.join(tr.config.checkpoint_dir, f"checkpoint_epoch_{epoch}.pt")
+    pt = os.path.join(pt_dir, os.path.basename(src))
+    shutil.copy(src, pt)
+    ckpt = os.path.join(ckpt_dir, f"checkpoint_epoch_{epoch}.ckpt")
+    params, state = jax_trees_from_state_dict(tr.model.state_dict())
+    cfg = tr.cfg
+    meta = {"epoch": epoch, "global_step": tr.global_step, "best_val_loss": tr.best_val_loss,
+            "config": {k: v for k, v in vars(tr.config).items()
+                       if isinstance(v, (int, float, str, bool, type(None)))},
+            "model_config": {"n_mels": cfg.n_mels, "d_model": cfg.d_model,
+                             "n_heads": cfg.n_heads, "n_blocks": cfg.n_blocks,
+                             "n_classes": cfg.n_classes, "dropout": cfg.dropout,
+                             "masked_norm": cfg.masked_norm}}
+    start = time.perf_counter()
+    save_jax_checkpoint_file(ckpt, meta, params, state,
+                             opt_named_from_optimizer(tr.optimizer, tr.model))
+    write_s = time.perf_counter() - start
+    numbers = {"ckpt_mb": os.path.getsize(ckpt) / 2 ** 20, "write_s": write_s}
+
+    # Served: ASRInference logits and the HTTP server's text, .ckpt against .pt.
+    start = time.perf_counter()
+    from_ckpt = ASRInference(ckpt, device="cuda")
+    numbers["load_s"] = time.perf_counter() - start
+    from_pt = ASRInference(pt, device="cuda")
+    for name, seconds in (("8 s", 8), ("24 s", 24)):
+        wav = _tone(seconds, 40 + seconds)
+        a, na = from_ckpt._forward_padded(wav)
+        b, nb = from_pt._forward_padded(wav)
+        if na != nb or not np.array_equal(a, b):
+            raise AssertionError(f".ckpt and .pt logits differ at {name}: frames {na} vs "
+                                 f"{nb}, max diff {float(np.abs(a - b).max())}")
+    texts = []
+    for path in (ckpt, pt):
+        server_cfg = ServerConfig()
+        server_cfg.MODEL_PATH = path
+        service = ASRService(server_cfg, warmup=False, device="cuda")
+        if service.asr is None:
+            raise AssertionError(f"the service did not load {path}")
+        server = make_stdlib_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+                write_wav(f.name, _tone(6, 41), SR)
+                with open(f.name, "rb") as fh:
+                    status, payload, _ = _post(
+                        f"http://127.0.0.1:{server.server_address[1]}/transcribe",
+                        [("file", "x.wav", fh.read())])
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        if status != 200:
+            raise AssertionError(f"/transcribe with {path}: {status} {payload}")
+        texts.append(payload["text"])
+    if texts[0] != texts[1]:
+        raise AssertionError(f"served texts differ: .ckpt {texts[0]!r}, .pt {texts[1]!r}")
+    print(f"ckpt: wrote {numbers['ckpt_mb']:.2f} MB in {write_s:.3f} s; served through "
+          f"ASRInference (load {numbers['load_s']:.3f} s) with the .pt's logits bit for bit at "
+          f"8 s and 24 s; POST /transcribe texts equal ({texts[0][:30]!r})", flush=True)
+
+    # Resumed: the newest checkpoint of each directory, state bit for bit.
+    resumed = {}
+    for kind, directory in (("ckpt", ckpt_dir), ("pt", pt_dir)):
+        t = _flagship_trainer(["--checkpoint_dir", directory, "--resume", "--augment",
+                               "--precision", "bf16", "--epochs", str(epoch + 1)])
+        t.load_checkpoint()
+        resumed[kind] = t
+    a, b = resumed["ckpt"], resumed["pt"]
+    if (a.start_epoch, a.global_step) != (b.start_epoch, b.global_step) \
+            or a.start_epoch != epoch + 1:
+        raise AssertionError(f"resume: .ckpt epoch/step {a.start_epoch}/{a.global_step}, "
+                             f".pt {b.start_epoch}/{b.global_step}")
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if sa["count"] != sb["count"] or not all(
+            torch.equal(x, y) for x, y in zip(sa["mu"] + sa["nu"], sb["mu"] + sb["nu"])):
+        raise AssertionError("the .ckpt resume's Adam state differs from the .pt resume's")
+    for k, v in b.model.state_dict().items():
+        if not torch.equal(a.model.state_dict()[k], v):
+            raise AssertionError(f"the .ckpt resume's {k} differs from the .pt resume's")
+    losses = [a.train_step(_train_batch(32, 70 + i), seed=70 + i) for i in range(2)]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"steps after the .ckpt resume: losses {losses}")
+    a.sync_global_step()
+    print(f"ckpt resume: epoch {a.start_epoch}, global step {b.global_step}, Adam count "
+          f"{sa['count']}, {len(sa['mu'])} moments equal to the .pt resume's bit for bit; "
+          f"2 steps: losses {[round(x, 4) for x in losses]}, global step {a.global_step}",
+          flush=True)
+    numbers.update(resume_epoch=a.start_epoch, resume_global_step=b.global_step,
+                   steps_after=losses)
+    return ckpt, numbers
+
+
+def remat_phase():
+    """One bf16 training step at B=32, T' <= 200 for each recomputation
+    policy: peak memory, wall ms (median of REMAT_REPS), forward launches;
+    and the fp32 gradients of dots against full."""
+    from turkish_asr_torch.ops.flash_attention import flash_attention
+    batch = _train_batch(32, 60)
+    out = {}
+    for policy in REMAT_POLICIES:
+        argv = ["--no_remat"] if policy == "none" else ["--remat_policy", policy]
+        tr = _flagship_trainer(argv + ["--augment"])
+        seed = iter(range(10 ** 6))
+        for _ in range(2):
+            tr.train_step(batch, next(seed))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times, launches = [], []
+        for _ in range(REMAT_REPS):
+            before = flash_attention.launches
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            tr.train_step(batch, next(seed))  # ends in a host read of the loss
+            times.append((time.perf_counter() - start) * 1e3)
+            launches.append(flash_attention.launches - before)
+        out[policy] = {"wall_ms": statistics.median(times),
+                       "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+                       "peak_over_state_mb": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+                       "fwd_launches": launches[0]}
+        want = 8 if policy == "none" else 16
+        if set(launches) != {want}:
+            raise AssertionError(f"remat {policy}: forward kernel launches a step {launches}, "
+                                 f"expected {want}")
+        print(f"remat {policy}: wall {out[policy]['wall_ms']:.3f} ms a step (median of "
+              f"{REMAT_REPS}), peak {out[policy]['peak_mb']:.1f} MB "
+              f"({out[policy]['peak_over_state_mb']:.1f} MB over weights and optimizer state), "
+              f"{want} forward launches a step", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+
+    grads = {}
+    for policy in ("full", "dots"):
+        tr = _flagship_trainer(["--remat_policy", policy, "--precision", "fp32"])
+        loss, _, _, _ = tr._loss(tr._to_device(batch), True, seed=5)
+        grads[policy] = torch.autograd.grad(loss, tr.params)
+        del tr
+    floor = 1e-4 * max(g.abs().max().item() for g in grads["full"])
+    worst = max((a - b).abs().max().item() / max(b.abs().max().item(), floor)
+                for a, b in zip(grads["dots"], grads["full"]))
+    out["dots_vs_full_grad"] = worst
+    print(f"remat dots vs full, fp32 gradients: max|dots - full| / max|full| = {worst:.3e} "
+          f"(tolerance 1e-3)", flush=True)
+    if worst > 1e-3:
+        raise AssertionError("dots gradients disagree with full")
+    return out
+
+
+def profile_phase(workdir):
+    """Three steps with --profile_dir: the Chrome trace names the attention
+    and CTC kernels."""
+    trace_dir = os.path.join(workdir, "trace")
+    tr = _flagship_trainer(["--profile_dir", trace_dir, "--augment", "--log_interval", "100",
+                            "--checkpoint_dir", os.path.join(workdir, "run_profile")])
+    tr.train_loader = [_train_batch(32, 80 + i) for i in range(3)]
+    tr.train_epoch(1)
+    files = os.listdir(trace_dir)
+    if len(files) != 1 or tr.profile_trace is None:
+        raise AssertionError(f"--profile_dir wrote {files}")
+    with open(tr.profile_trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    found = {k: sorted({n for n in names if any(p in n for p in pats)})
+             for k, pats in PROFILED_KERNELS.items()}
+    missing = [k for k, v in found.items() if not v]
+    print(f"profile: {os.path.getsize(tr.profile_trace) / 2 ** 20:.2f} MB trace, "
+          f"{len(names)} kernel names; {', '.join(f'{k}: {len(v)}' for k, v in found.items())}",
+          flush=True)
+    if missing:
+        raise AssertionError(f"the trace names no {missing} kernels")
+    return {"trace_mb": os.path.getsize(tr.profile_trace) / 2 ** 20, "kernel_names": len(names)}
+
+
+def export_phase(workdir, ckpt):
+    """python -m turkish_asr_torch.export_model on the card from the .ckpt:
+    the loaded program against the eager model, and its launches."""
+    from turkish_asr_torch import export_model
+    from turkish_asr_torch.audio.features import log_mel_spectrogram
+    from turkish_asr_torch.ops.flash_attention import flash_attention
+    from turkish_asr_torch.scripts.ab_attention import _wall_ms
+    from turkish_asr_torch.utils.weights import load_ckpt
+
+    out = os.path.join(workdir, "model.pt2")
+    start = time.perf_counter()
+    export_model.main(["--checkpoint", ckpt, "--output", out, "--device", "cuda"])
+    numbers = {"export_s": time.perf_counter() - start, "pt2_mb": os.path.getsize(out) / 2 ** 20}
+    start = time.perf_counter()
+    program = torch.export.load(out).module()
+    numbers["load_s"] = time.perf_counter() - start
+    cfg, model = load_ckpt(ckpt, "cuda")
+    rng = np.random.default_rng(0)
+    wav = np.stack([_tone(24, 90 + i) for i in range(16)])
+    feats, _ = log_mel_spectrogram(torch.from_numpy(wav).cuda(),
+                                   torch.full((16,), wav.shape[1], dtype=torch.int32).cuda())
+    inputs = {"B=2 x T=200": torch.from_numpy(
+                  rng.standard_normal((2, 200, cfg.n_mels)).astype(np.float32)).cuda(),
+              "B=16 x 24 s": feats[:, :feats.shape[1] // 4 * 4].contiguous()}
+    launches = 0
+    for name, x in inputs.items():
+        with torch.no_grad():
+            before = flash_attention.launches
+            got = program(x)
+            torch.cuda.synchronize()
+            n = flash_attention.launches - before
+            want = model(x, None, torch.float32)
+            err = (got - want).abs().max().item()
+            numbers[name] = {"max_abs_err": err, "fwd_launches": n,
+                             "program_ms": _wall_ms(lambda x=x: program(x)),
+                             "eager_ms": _wall_ms(lambda x=x: model(x, None, torch.float32))}
+        launches += n
+        print(f"export {name} (T={x.shape[1]}): max|program - eager| = {err:.3e} (fp32, "
+              f"tolerance 1e-4), {n} flash_attention_fwd launches a forward; wall "
+              f"{numbers[name]['program_ms']:.3f} ms program, {numbers[name]['eager_ms']:.3f} "
+              f"ms eager (median of 10)", flush=True)
+        if err > 1e-4 or n != cfg.n_blocks or not torch.isfinite(got).all():
+            raise AssertionError(f"the exported program at {name}: err {err}, {n} launches")
+    export_model.main(["--checkpoint", ckpt, "--output", os.path.join(workdir, "from_ckpt.pt"),
+                       "--format", "torch", "--device", "cuda"])
+    numbers["export_launches"] = launches
+    return numbers
+
+
+def memorize_phase():
+    """The five-word memorization of tests/test_torch_overfit.py on the
+    card, bf16, through the kernels."""
+    from turkish_asr_torch.ops.flash_attention import flash_attention
+    from turkish_asr_torch.scripts.overfit import STEPS, WORDS, memorize
+    before = flash_attention.launches
+    result = memorize("cuda", torch.bfloat16)
+    launches = flash_attention.launches - before
+    print(f"memorization: loss {result['first_loss']:.4f} -> {result['final_loss']:.4f} in "
+          f"{STEPS} steps ({result['seconds']:.3f} s), texts {result['texts']}, "
+          f"{launches} attention forward launches", flush=True)
+    if not (result["final_loss"] < 0.1 and result["texts"] == list(WORDS)
+            and launches >= 2 * STEPS):
+        raise AssertionError(f"memorization failed: {result}")
+    return result
+
+
+def _phase(name, fn, *args):
+    start = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - start:.3f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1330,19 +1670,24 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     start = time.perf_counter()
-    build_phase()
-    err, times = attention_phase()
-    ctc_err, ctc_times = ctc_phase()
+    _phase("build", build_phase)
+    err, times = _phase("attention", attention_phase)
+    ctc_err, ctc_times = _phase("ctc", ctc_phase)
     err.update(ctc_err)
     times.update(ctc_times)
-    swiglu_launches, err["swiglu_fwd"], times["swiglu_fwd"] = swiglu_phase()
+    swiglu_launches, err["swiglu_fwd"], times["swiglu_fwd"] = _phase("swiglu", swiglu_phase)
     with tempfile.TemporaryDirectory() as workdir:
-        counts, pt = train_phase(workdir)
-        gradient_check()
-        serve_trained(pt)
+        counts, pt, trained = _phase("training", train_phase, workdir)
+        _phase("gradient check", gradient_check)
+        _phase("serve trained", serve_trained, pt)
         _reset_counts()
-        serving_launches = serving_phase(workdir)
-        beam_launches, beam = beam_phase(workdir)
+        serving_launches = _phase("serving", serving_phase, workdir)
+        beam_launches, beam = _phase("beam", beam_phase, workdir)
+        ckpt, numbers = _phase("ckpt", ckpt_phase, workdir, trained)
+        numbers = {"ckpt": numbers, "remat": _phase("remat", remat_phase),
+                   "profile": _phase("profile", profile_phase, workdir),
+                   "export": _phase("export", export_phase, workdir, ckpt),
+                   "memorization": _phase("memorization", memorize_phase)}
     print(f"all phases: {time.perf_counter() - start:.3f} s", flush=True)
 
     replaces = {
@@ -1383,6 +1728,7 @@ def main():
         if name in ("flash_attention_fwd", "flash_attention_bwd"):
             entry["mha"] = {k: times["mha"][name][k] for k in keys}
         if name == "flash_attention_fwd":
+            entry["export_launches"] = numbers["export"]["export_launches"]
             entry["serving_launches"] = serving_launches
             entry["beam_serving_launches"] = beam_launches
             entry["serving"] = {k: times["serve"][name][k] for k in keys}
@@ -1397,6 +1743,7 @@ def main():
                          path="python turkish_asr_torch/scripts/ab_swiglu.py")
         kernels.append(entry)
     print(json.dumps({"beam": beam}))
+    print(json.dumps(numbers))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -199,6 +199,48 @@ def test_backward_kernel_is_deterministic(cuda, B, Kh, T, rate):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_attention_op_is_the_kernel_or_its_plain_version(device, request):
+    """``torch.ops.turkish_asr_torch.flash_attention_fwd``: on CPU tensors the
+    plain version itself; on the card one kernel launch, held to the plain
+    version as test_kernel_matches_plain_version holds it (fp32 1e-4)."""
+    if device == "cuda":
+        request.getfixturevalue("cuda")
+    q, k, v, mask = _inputs(3, 4, 1, 201, 64, _lengths(3, 201), torch.float32, device)
+    before = flash_attention.launches
+    got = torch.ops.turkish_asr_torch.flash_attention_fwd(q, k, v, mask, 0.1, 5)
+    want = flash_attention_fwd_stats_ref(q, k, v, mask, 0.1, 5)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    assert flash_attention.launches == before + (device == "cuda")
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 if device == "cuda" else 0)
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_kernel(cuda, tmp_path):
+    """A ``torch.export`` program of the model (export_model.export_program)
+    launches the forward kernel once a block a forward (export_launches in
+    chip_smoke.py's kernels line) and matches the eager model in fp32."""
+    from turkish_asr_torch.export_model import export_program
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    cfg = ModelConfig(n_mels=80, d_model=64, n_heads=2, n_blocks=3, n_classes=56, dropout=0.0)
+    model = init_model(cfg, torch.Generator().manual_seed(0)).to(cuda).eval()
+    path = str(tmp_path / "m.pt2")
+    export_program(model, cfg, path, cuda)
+    program = torch.export.load(path).module()
+    x = torch.randn(5, 124, 80, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = flash_attention.launches
+    with torch.no_grad():
+        got = program(x)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches - before
+        want = model(x, None, torch.float32)
+    assert launches == cfg.n_blocks
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("slots", [132, 264, 528])
 @pytest.mark.parametrize("B,H,Kh,T", [(4, 4, 1, 801), (4, 4, 4, 801), (32, 4, 1, 200),
                                       (16, 4, 1, 601), (3, 2, 2, 9), (1, 4, 1, 1)])

@@ -54,6 +54,10 @@ SLICE_MODULES = [
     "turkish_asr_torch.decode.factory",
     "turkish_asr_torch.ops.beam_search",
     "turkish_asr_torch.scripts.synthetic_arpa",
+    "turkish_asr_torch.utils.msgpack_read",
+    "turkish_asr_torch.utils.runtime",
+    "turkish_asr_torch.export_model",
+    "turkish_asr_torch.scripts.overfit",
 ]
 
 

@@ -84,12 +84,25 @@ def test_batched_equals_per_file(wavs, port_asr):
         [port_asr.transcribe(f) for f in files]
 
 
-def test_beam_search_and_ckpt_are_refused(model_pt):
-    """A JAX .ckpt is still refused, with beam search or without; beam
-    search itself is ported (tests/test_torch_inference_cli.py)."""
+def test_beam_search_and_ckpt_are_refused(model_pt, wavs, port_asr, tmp_path):
+    """Neither is refused any more: a JAX .ckpt of the same weights is
+    served, with beam search or without, and gives the .pt's texts (the
+    name is kept from when both were refused; tests/test_torch_ckpt.py
+    holds the .ckpt path to the JAX package)."""
+    from turkish_asr_tpu.train.checkpoint import save_checkpoint_file
+    cfg = JaxConfig(n_mels=80, d_model=64, n_heads=4, n_blocks=2, n_classes=56, dropout=0.0)
+    params, state = jax_init(jax.random.PRNGKey(1), cfg)
+    ckpt = str(tmp_path / "model.ckpt")
+    save_checkpoint_file(ckpt, {"model_config": {"n_heads": 4}}, params, state)
+    files = [wavs["one"], wavs["two_half"]]
     for beam in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ASRInference("model.ckpt", use_beam_search=beam, device="cpu")
+        from_pt = ASRInference(model_pt, use_beam_search=beam, beam_width=4, device="cpu",
+                               compute_dtype=torch.float32)
+        from_ckpt = ASRInference(ckpt, use_beam_search=beam, beam_width=4, device="cpu",
+                                 compute_dtype=torch.float32)
+        assert from_ckpt.transcribe_files(files) == from_pt.transcribe_files(files)
+    with pytest.raises(ValueError, match="export_model --format torch"):
+        ASRInference("model.onnx", device="cpu")
 
 
 def test_cuda_device_raises_without_gpu(model_pt):

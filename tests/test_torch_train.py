@@ -11,7 +11,8 @@ against the JAX package's, on the CPU at a small size.
 - recomputation on and off, with dropout on, give the same gradients and
   BatchNorm statistics; a NaN batch changes nothing; save -> resume
   continues bit for bit; the written .pt is served by ``ASRInference``;
-  ``main`` trains, resumes and refuses the TPU-only flags.
+  ``main`` trains, resumes and refuses the TPU-only flags (``--profile_dir``
+  and ``--remat_policy dots`` run: tests/test_torch_remat_profile.py).
 
 Tolerances: the schedule and optimizer run the same fp32 formulas: 1e-6
 relative. Forward logits: 1e-4 absolute (fp32, summation order). The
@@ -323,8 +324,7 @@ def test_main_trains_resumes_and_serves(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--use_pallas"], ["--ctc_impl", "scan"], ["--mesh_shape", "data=4"],
-                                  ["--distributed"], ["--rng_impl", "threefry2x32"],
-                                  ["--profile_dir", "x"], ["--remat_policy", "dots"]])
+                                  ["--distributed"], ["--rng_impl", "threefry2x32"]])
 def test_tpu_only_flags_are_refused(flag):
     with pytest.raises(ValueError, match="not ported|not applicable"):
         get_config(flag)

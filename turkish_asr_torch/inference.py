@@ -10,12 +10,13 @@ padding (the reference's behaviour), so a file gives the same text alone
 and in a batch.
 
 CLI: ``python -m turkish_asr_torch.inference --audio FILE_OR_DIR --model
-model.pt [--beam_search --beam_width 16 --lm lm.arpa --lm_fusion
+model.pt|model.ckpt [--beam_search --beam_width 16 --lm lm.arpa --lm_fusion
 auto|device|hash|host --lm_weight 0.3 --word_bonus 0.5] [--evaluate]
 [--timestamps] [--device cuda|cpu]``.
 
-Not ported yet (ROADMAP.md): reading the JAX package's msgpack ``.ckpt``
-and the multi-device mesh.
+The model is a reference-format ``.pt`` or the JAX package's ``.ckpt``
+(``utils/weights.load_model``; a ``.ckpt`` is read without jax, flax or
+msgpack). Not ported yet (ROADMAP A6): the multi-device mesh.
 """
 
 import argparse
@@ -34,7 +35,7 @@ from turkish_asr_torch.decode.greedy import GreedyDecoder
 from turkish_asr_torch.decode.lm import KenLMModel, NGramLanguageModel
 from turkish_asr_torch.utils.device import resolve_device
 from turkish_asr_torch.utils.errors import TimestampsUnsupportedError
-from turkish_asr_torch.utils.weights import load_pt
+from turkish_asr_torch.utils.weights import load_model
 
 LM_FUSIONS = ("auto", "device", "hash", "host")
 
@@ -57,6 +58,7 @@ class ASRInference:
 
     Usage:
         asr = ASRInference("model.pt")               # CUDA, bf16, greedy
+        asr = ASRInference("best_model.ckpt")        # a JAX-trained checkpoint
         text = asr.transcribe("audio.wav")
         asr = ASRInference("model.pt", use_beam_search=True, beam_width=16,
                            lm_path="lm.arpa")        # LM-fused beam on the card
@@ -66,16 +68,11 @@ class ASRInference:
                  lm_path=None, lm_fusion="auto", lm_weight=0.3, word_bonus=0.5,
                  compute_dtype=torch.bfloat16, tokenizer_path=None, trust_checkpoint=False,
                  device="cuda"):
-        if not (model_path.endswith(".pt") or model_path.endswith(".pth")):
-            raise NotImplementedError(
-                f"{model_path}: the port reads reference-format .pt checkpoints "
-                "(export_model.py --format torch); JAX .ckpt reading is not "
-                "ported yet (ROADMAP.md)")
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.tokenizer = load_tokenizer(tokenizer_path)
-        self.cfg, self.model = load_pt(model_path, self.device, n_heads=n_heads,
-                                       allow_pickle=trust_checkpoint)
+        self.cfg, self.model = load_model(model_path, self.device, n_heads=n_heads,
+                                          allow_pickle=trust_checkpoint)
         _check_vocab_match(self.cfg.n_classes, self.tokenizer, model_path)
         self.use_beam_search = use_beam_search
         self.decoder = None
@@ -313,17 +310,17 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Turkish ASR Inference (PyTorch)")
     parser.add_argument("--audio", type=str, required=True, help="Audio file or directory")
     parser.add_argument("--model", type=str, required=True,
-                        help="Model checkpoint path (a reference-format .pt)")
+                        help="Model checkpoint path (a reference-format .pt or a JAX .ckpt)")
     parser.add_argument("--beam_search", action="store_true", help="Use beam search decoding")
     parser.add_argument("--beam_width", type=int, default=10, help="Beam width")
     parser.add_argument("--n_mel_channels", type=int, default=80,
-                        help="Mel channels (a .pt carries its own; accepted and ignored)")
+                        help="Mel channels (a .pt or .ckpt carries its own; accepted and ignored)")
     parser.add_argument("--d_model", type=int, default=256,
-                        help="Model dimension (a .pt carries its own; accepted and ignored)")
+                        help="Model dimension (a .pt or .ckpt carries its own; accepted and ignored)")
     parser.add_argument("--n_heads", type=int, default=4,
-                        help="Attention heads, when the .pt stores none")
+                        help="Attention heads, when the checkpoint stores none")
     parser.add_argument("--n_blocks", type=int, default=8,
-                        help="Conformer blocks (a .pt carries its own; accepted and ignored)")
+                        help="Conformer blocks (a .pt or .ckpt carries its own; accepted and ignored)")
     parser.add_argument("--lm", type=str, default=None,
                         help="KenLM/ARPA language model for beam-search fusion")
     parser.add_argument("--lm_fusion", type=str, default="auto", choices=list(LM_FUSIONS),

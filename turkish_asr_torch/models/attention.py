@@ -10,6 +10,7 @@ plain versions on CPU tensors; differentiable, with attention-weight
 dropout inside the kernel in training), which returns fp32 context.
 """
 
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -40,6 +41,18 @@ def rope_cos_sin(seq_len, dim, dtype, device, base=10000.0):
                 torch.from_numpy(sin).to(device=device, dtype=dtype))
 
 
+def rope_tables(seq_len, dim, dtype, device, base=10000.0):
+    """``rope_cos_sin``'s tables from torch ops in fp64 on ``device``, for
+    a symbolic ``seq_len`` (``torch.export``), where the cache would
+    specialize the program to one length; the JAX module
+    (turkish_asr_tpu/models/attention.py:38-53) splits its tables the same
+    way. Within one fp32 ulp of the numpy tables."""
+    inv_freq = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float64, device=device) / dim))
+    freqs = torch.outer(torch.arange(seq_len, dtype=torch.float64, device=device), inv_freq)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().float().to(dtype), emb.sin().float().to(dtype)
+
+
 def rope_inv_freq(d_head):
     """The reference's ``rotary_emb.inv_freq`` buffer (fp32 numpy math, as
     turkish_asr_tpu/utils/torch_export.py writes it)."""
@@ -56,6 +69,23 @@ def apply_rope(x, cos, sin):
     return x * cos + rotate_half(x) * sin
 
 
+class _DenseProducts(threading.local):
+    """Whether this thread is inside a ``dense`` product (read by the
+    ``--remat_policy dots`` checkpoint policy)."""
+    depth = 0
+
+
+_DENSE = _DenseProducts()
+
+
+def in_dense_product():
+    """True while a ``dense`` layer's product runs on this thread: the
+    linear layers' products are the ones JAX's ``dots`` remat policy
+    saves; the pointwise convolutions' matmuls, which JAX computes as
+    convolutions, are not among them."""
+    return _DENSE.depth > 0
+
+
 def dense(linear, x, compute_dtype):
     """``x @ W^T + b``: the product in ``compute_dtype``, the bias added in
     fp32, the result cast back to ``compute_dtype``.
@@ -64,7 +94,11 @@ def dense(linear, x, compute_dtype):
     bf16 GEMM with an fp32 result on the CPU, so under bf16 the product is
     rounded to bf16 once more than in JAX. In fp32 the two agree.
     """
-    out = torch.matmul(x.to(compute_dtype), linear.weight.to(compute_dtype).t())
+    _DENSE.depth += 1
+    try:
+        out = torch.matmul(x.to(compute_dtype), linear.weight.to(compute_dtype).t())
+    finally:
+        _DENSE.depth -= 1
     return (out.float() + linear.bias.float()).to(compute_dtype)
 
 
@@ -103,7 +137,8 @@ class MultiQueryAttention(nn.Module):
         q = dense(self.linear_q, x, compute_dtype).reshape(B, T, H, Dh)
         k = dense(self.linear_k, x, compute_dtype).reshape(B, T, Kh, Dh)
         v = dense(self.linear_v, x, compute_dtype).reshape(B, T, Kh, Dh)
-        cos, sin = rope_cos_sin(T, Dh, q.dtype, q.device)
+        tables = rope_tables if isinstance(T, torch.SymInt) else rope_cos_sin
+        cos, sin = tables(T, Dh, q.dtype, q.device)
         cos, sin = cos[None, :, None, :], sin[None, :, None, :]
         q = apply_rope(q, cos, sin).transpose(1, 2).contiguous()  # (B, H, T, Dh)
         k = apply_rope(k, cos, sin).transpose(1, 2).contiguous()  # (B, Kh, T, Dh)

@@ -34,8 +34,9 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
-from turkish_asr_torch.models.attention import MultiQueryAttention, dense
+from turkish_asr_torch.models.attention import MultiQueryAttention, dense, in_dense_product
 
 
 @dataclass(frozen=True)
@@ -254,6 +255,24 @@ class ConformerBlock(nn.Module):
         return (out, *stats) if train else out
 
 
+def dots_saveable(ctx, op, *args, **kwargs):
+    """The ``--remat_policy dots`` checkpoint policy, JAX's
+    ``dots_with_no_batch_dims_saveable`` (turkish_asr_tpu/train/trainer.py:63-77):
+    save the products of the linear layers (``dense``: the SwiGLU FFNs'
+    and q/k/v/out, ``jnp.dot`` in JAX) and recompute everything else:
+    convolutions, norms, elementwise work and the attention core. The
+    pointwise convolutions are matmuls here but convolutions in JAX, so
+    the policy saves a matmul only inside ``dense``."""
+    if op is torch.ops.aten.mm.default and in_dense_product():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_context():
+    """``torch.utils.checkpoint``'s ``context_fn`` for ``dots_saveable``."""
+    return create_selective_checkpoint_contexts(dots_saveable)
+
+
 class ConformerCTC(nn.Module):
     """Two stride-2 Conv2d + SiLU subsample, input projection, Conformer
     blocks, linear CTC head. ``forward`` returns fp32 logits."""
@@ -279,7 +298,9 @@ class ConformerCTC(nn.Module):
         a list of (running mean, running var) per block, for
         ``commit_batch_norm``); dropout runs when ``seed`` (the step's) is
         given. ``remat`` recomputes each block in the backward
-        (``torch.utils.checkpoint``, JAX's per-block ``jax.checkpoint``)."""
+        (``torch.utils.checkpoint``, JAX's per-block ``jax.checkpoint``):
+        ``"full"`` (or True) the whole block, ``"dots"`` all but the linear
+        layers' products (``dots_saveable``)."""
         cd = compute_dtype
         h = x[:, None].to(cd)  # (B, 1, T, F)
         for conv in (self.subsample[0], self.subsample[2]):
@@ -296,12 +317,15 @@ class ConformerCTC(nn.Module):
             for block in self.blocks:
                 h = block(h, mask, cd)
             return dense(self.fc, h, cd).float()
+        if remat not in (False, None, True, "full", "dots"):
+            raise ValueError(f"remat must be False, 'full' or 'dots', got {remat!r}")
+        context = {"context_fn": dots_context} if remat == "dots" else {}
         bn_state = []
         for i, block in enumerate(self.blocks):
             block_seed = None if seed is None else derive_seed(seed, i)
             if remat:
                 h, mean, var = torch.utils.checkpoint.checkpoint(
-                    block, h, mask, cd, True, block_seed, use_reentrant=False)
+                    block, h, mask, cd, True, block_seed, use_reentrant=False, **context)
             else:
                 h, mean, var = block(h, mask, cd, True, block_seed)
             bn_state.append((mean, var))

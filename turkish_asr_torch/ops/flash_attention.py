@@ -5,11 +5,20 @@ VJP in turkish_asr_tpu/ops/_flash_attention_impl.py (:124-143). A tensor on
 the CPU goes to the plain PyTorch versions (``_flash_attention.py``); a
 CUDA tensor launches the hand-written Hopper kernels
 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``) at every
-sequence length, or raises for what they do not take. Both devices go
-through the same ``torch.autograd.Function``: its forward saves
-q, k, v, mask, out, the softmax's row max and sum, and the dropout seed;
-its backward takes delta = rowsum(g * out) in PyTorch, as the TPU package
-takes it outside its kernel, and runs the backward kernels. The backward's
+sequence length, or raises for what they do not take.
+
+The forward is the PyTorch op ``turkish_asr_torch::flash_attention_fwd``
+(``torch.library.custom_op``, registered when this module is imported):
+its CPU implementation is the plain version, its CUDA implementation
+the kernel, and its fake implementation gives ``torch.export`` the output
+shapes, so an exported program holds one op node a block and launches the
+kernel when it runs (load a saved ``.pt2`` after importing this module).
+Without gradients (serving, export) ``flash_attention`` calls the op
+directly; with them, ``torch.autograd.Function`` ``FlashAttention``,
+whose forward calls the op and saves q, k, v, mask, out, the softmax's
+row max and sum, and the dropout seed; its backward takes delta =
+rowsum(g * out) in PyTorch, as the TPU package takes it outside its
+kernel, and runs the backward kernels. The backward's
 dk/dv kernel splits the query rows into chunks (``dkdv_chunks``) whose
 partial sums go to an fp32 scratch the wrapper allocates.
 
@@ -26,6 +35,7 @@ dump kernel's.
 import ctypes
 import functools
 import threading
+from typing import Optional
 
 import torch
 
@@ -178,18 +188,29 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _fwd(q, k, v, mask, rate, seed):
-    """(out, lse, row_max, row_sum) from the kernel (CUDA) or its plain
-    version (CPU)."""
-    if _device_of(q) == "cpu":
-        return flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed)
+@torch.library.custom_op("turkish_asr_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor], rate: float,
+                        seed: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward as a PyTorch op, ``torch.ops.turkish_asr_torch.flash_attention_fwd``:
+    (out (B, H, T, D), lse, row max, row sum (B, H, T)), all fp32. On CPU
+    tensors the plain version; on CUDA tensors the kernel
+    (``_fwd_cuda``); any other device has no implementation and raises.
+    As an op it is traced whole by ``torch.export`` (``register_fake``),
+    so an exported program launches the kernel."""
+    return flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed)
+
+
+@flash_attention_fwd.register_kernel("cuda")
+def _fwd_cuda(q, k, v, mask, rate, seed):
     _check(q, k, v, mask)
     B, H, T, D = q.shape
     mask = _mask_u8(mask, B, T, q.device)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
-    lse, row_max, row_sum = torch.empty((3, B, H, T), dtype=torch.float32,
-                                        device=q.device).unbind(0)
+    lse, row_max, row_sum = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+                             for _ in range(3))
     fn = load_kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
@@ -200,6 +221,20 @@ def _fwd(q, k, v, mask, rate, seed):
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {rc}")
     _count(flash_attention)
     return out, lse, row_max, row_sum
+
+
+@flash_attention_fwd.register_fake
+def _fwd_fake(q, k, v, mask, rate, seed):
+    B, H, T, D = q.shape
+    return (q.new_empty((B, H, T, D), dtype=torch.float32),
+            *(q.new_empty((B, H, T), dtype=torch.float32) for _ in range(3)))
+
+
+def _fwd(q, k, v, mask, rate, seed):
+    """(out, lse, row_max, row_sum) from the op: the kernel (CUDA) or its
+    plain version (CPU)."""
+    _device_of(q)
+    return flash_attention_fwd(q, k, v, mask, rate, seed)
 
 
 def _bwd(q, k, v, mask, row_max, row_sum, delta, g, rate, seed):
@@ -262,7 +297,10 @@ def flash_attention(q, k, v, mask=None, dropout_rate=0.0, seed=0):
     """
     rate = float(dropout_rate)
     _check_dropout(rate, seed)
-    return FlashAttention.apply(q, k, v, mask, rate, int(seed))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, mask, rate, int(seed))
+    out, lse, _, _ = _fwd(q, k, v, mask, rate, int(seed))  # inference, and torch.export
+    return out, lse
 
 
 flash_attention.launches = 0

@@ -3,7 +3,7 @@ profiles the main path's attention share.
 
 Usage (by path, so that ``--root`` picks the package it times):
 
-    python turkish_asr_torch/scripts/ab_attention.py [--root DIR] [--profile]
+    python turkish_asr_torch/scripts/ab_attention.py [--root DIR] [--profile | --dump | --served]
 
 ``--root`` is the root of a checkout of this repository (default: the one
 this file is in); its ``turkish_asr_torch`` is imported and its kernels are
@@ -37,6 +37,15 @@ ended by a synchronize), and under ``torch.profiler`` over 5 of them the
 kernel launches, the device time, the attention kernels' device time and
 share, and the device-busy share (device time over the profiled wall).
 It needs a CUDA card and raises without one.
+
+With ``--served`` it times the served forward (log-mel + the flagship
+model in bf16 under ``torch.inference_mode``, as ``ASRInference`` runs it,
+seeded random weights) at B=1 x 8 s and B=16 x 24 s: unprofiled wall ms,
+median of 10 after warm-up, host clock around work ended by a
+synchronize. Run with ``--root`` on a parent tree and without it in turns,
+it compares the host cost of two versions of the model's Python (e.g. the
+attention forward called through the ``torch.library`` op against a plain
+ctypes call).
 """
 
 import argparse
@@ -318,6 +327,32 @@ def profile_main_path():
     return {"train": train, "serve": serve}
 
 
+def served_forward_times():
+    """Wall ms (median of 10) of the served bf16 forward at B=1 x 8 s and
+    B=16 x 24 s."""
+    import numpy as np
+    from turkish_asr_torch.audio.features import log_mel_spectrogram
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+
+    cfg = ModelConfig(n_mels=80, d_model=256, n_heads=4, n_blocks=8, n_classes=56, dropout=0.0)
+    model = init_model(cfg, torch.Generator().manual_seed(0)).cuda().eval()
+    rng = np.random.default_rng(0)
+    out = {}
+    for B, seconds in ((1, 8.0), (16, 24.0)):
+        wav, lens = _tone_batch(np, rng, B, [seconds] * B)
+        x, xl = torch.from_numpy(wav).cuda(), torch.from_numpy(lens).cuda()
+
+        def forward():
+            with torch.inference_mode():
+                feats, fl = log_mel_spectrogram(x, xl)
+                return model(feats, fl, torch.bfloat16)
+
+        key = f"B{B}x{seconds:g}s"
+        out[key] = _wall_ms(forward)
+        print(f"served forward {key}: wall {out[key]:.3f} ms (median of 10)", flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -327,6 +362,8 @@ def main(argv=None):
                       help="profile a training step and a long served forward instead")
     mode.add_argument("--dump", action="store_true",
                       help="time the dropout-mask dump kernel instead")
+    mode.add_argument("--served", action="store_true",
+                      help="time the served forward at B=1 x 8 s and B=16 x 24 s instead")
     args = parser.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -342,6 +379,8 @@ def main(argv=None):
     print(f"{torch.cuda.get_device_name(0)}; checkout {root}", flush=True)
     if args.profile:
         key, result = "profile", profile_main_path()
+    elif args.served:
+        key, result = "served", served_forward_times()
     else:
         key, result = ("dump", dump_times(fa)) if args.dump else ("times", kernel_times(fa))
     print(json.dumps({"root": str(root), key: result}))

@@ -20,7 +20,8 @@ ASR_BATCH_WINDOW_MS > 0 turns on cross-request micro-batching.
 Run: ``python -m turkish_asr_torch.serve.server`` (CUDA). The model path
 defaults to ``./runs/best_model.pt``, the file that ``python -m
 turkish_asr_torch.main`` writes with its defaults; ``ASR_MODEL_PATH``
-names another ``.pt``.
+names another ``.pt``, or a JAX ``.ckpt`` (e.g. the JAX trainer's
+``best_model.ckpt``), which the port reads without jax.
 """
 
 import json
@@ -97,10 +98,10 @@ class MicroBatcher:
 
 class ServerConfig:
     """Env-var server configuration: the JAX server's names and defaults.
-    A ``.pt`` carries its own architecture (tensor shapes and stored
-    config), so N_MEL_CHANNELS, D_MODEL and N_BLOCKS have no counterpart
-    here, as they have none on the JAX server's ``.pt`` path; N_HEADS is
-    used when the checkpoint stores none. USE_BEAM_SEARCH=true serves the
+    A ``.pt`` or ``.ckpt`` carries its own architecture (tensor shapes and
+    stored config), so N_MEL_CHANNELS, D_MODEL and N_BLOCKS have no
+    counterpart here; N_HEADS is used when the checkpoint stores none (a
+    ``.ckpt``'s ``model_config`` holds it). USE_BEAM_SEARCH=true serves the
     beam of width BEAM_WIDTH, LM-fused with the ARPA at ASR_LM_PATH
     through ASR_LM_FUSION (auto/device/hash/host, the CLI's --lm_fusion),
     ASR_LM_WEIGHT and ASR_WORD_BONUS. The model path defaults to the port

@@ -3,8 +3,9 @@
 Counterpart of turkish_asr_tpu/train/trainer.py (:42-629). One train step
 runs on the device from the padded waveform batch: log-mel, SpecAugment
 (``--augment``), the Conformer in train mode (dropout, BatchNorm batch
-statistics, per-block recomputation), log-softmax, CTC (the CUDA kernels
-on the card), backward, then
+statistics, per-block recomputation: ``--remat_policy full`` or ``dots``,
+off with ``--no_remat``), log-softmax, CTC (the CUDA kernels on the card),
+backward, then
 
 - the NaN/Inf skip, on the loss and on the gradient norm (a non-finite
   activation in a masked-out sample gives a finite loss but NaN gradients
@@ -19,7 +20,13 @@ The loss is the reference's: per-sample CTC over ``frame_lengths // 4``
 frames, divided by the target length, averaged over ``sample_mask``.
 Validation computes the same loss in eval mode and WER/CER from the greedy
 collapse with the tokenizer's ``pad_token_id`` as blank (the loss's blank
-is 0). Checkpoints are the reference's ``.pt`` (``train/checkpoint.py``).
+is 0). Checkpoints are the reference's ``.pt`` (``train/checkpoint.py``);
+``--resume`` also continues from the JAX trainer's ``.ckpt``: the
+parameters, BatchNorm state, Adam moments and counts, and MultiSteps'
+window (``utils/weights.restore_optimizer_from_named``), or, for a file
+without optimizer state, the JAX step-offset rule. ``--profile_dir``
+traces the first ``PROFILE_BATCHES`` batches of the start epoch
+(``utils/runtime.py``), as the JAX trainer does.
 
 Dropout and SpecAugment draw from seeds derived from (--seed, epoch,
 batch), not from a generator that advances, so a step is a pure function
@@ -38,11 +45,15 @@ from turkish_asr_torch.decode.greedy import greedy_collapse_batch
 from turkish_asr_torch.models.conformer import derive_seed
 from turkish_asr_torch.ops.ctc import ctc_loss
 from turkish_asr_torch.train.checkpoint import (
-    latest_checkpoint, load_checkpoint_file, save_checkpoint_file)
+    latest_checkpoint, load_checkpoint_file, load_jax_checkpoint_file, save_checkpoint_file)
 from turkish_asr_torch.train.optim import MultiSteps
 from turkish_asr_torch.utils.metrics import ASRMetrics
+from turkish_asr_torch.utils.runtime import start_profiler_trace, stop_profiler_trace
+from turkish_asr_torch.utils.weights import (
+    default_model_state, restore_optimizer_from_named, state_dict_from_jax)
 
 SEED_AUGMENT, SEED_DROPOUT = 0, 1
+PROFILE_BATCHES = 20  # the JAX trainer's traced window
 
 
 class Trainer:
@@ -65,7 +76,8 @@ class Trainer:
         self.accumulation_steps = accumulation_steps
         self.compute_dtype = compute_dtype
         self.augment = augment
-        self.remat = not getattr(config, "no_remat", False)
+        self.remat = (False if getattr(config, "no_remat", False)
+                      else getattr(config, "remat_policy", "full"))
         self.metrics = ASRMetrics(tokenizer) if tokenizer else None
         if not tokenizer:
             logger.warning("Tokenizer not provided! WER/CER calculation disabled.")
@@ -73,6 +85,10 @@ class Trainer:
         self.start_epoch = 1
         self.best_val_loss = float("inf")
         self.global_step = 0
+        # A resumed JAX checkpoint without optimizer state carries a
+        # global_step but no count: global_step = offset + the count.
+        self._step_offset = 0
+        self.profile_trace = None  # the last --profile_dir trace file
         self.losses = []  # every train step's loss, in order (NaN for a skipped step)
 
     # ------------------------------------------------------------------
@@ -127,7 +143,7 @@ class Trainer:
             self.sync_global_step()
 
     def sync_global_step(self):
-        self.global_step = self.optimizer.step_count
+        self.global_step = self._step_offset + self.optimizer.step_count
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -162,21 +178,33 @@ class Trainer:
             self.logger.warning("No checkpoint found! Starting from scratch.")
             return
         self.logger.info(f"Resuming from: {path}")
-        ckpt = load_checkpoint_file(path)
+        jax_ckpt = path.endswith(".ckpt")
+        ckpt = load_jax_checkpoint_file(path) if jax_ckpt else load_checkpoint_file(path)
+        meta = ckpt["meta"] if jax_ckpt else ckpt
         # The vocabulary guard comes before any state is restored, so a
         # tokenizer swap is named as such, not as a shape error.
-        n_classes = (ckpt.get("model_config") or {}).get("n_classes")
+        n_classes = (meta.get("model_config") or {}).get("n_classes")
         if n_classes is not None and int(n_classes) != self.cfg.n_classes:
             raise ValueError(
                 f"Checkpoint/model vocabulary mismatch on resume: {path} has "
                 f"n_classes={int(n_classes)} but the current tokenizer/model uses "
                 f"n_classes={self.cfg.n_classes}. Use the tokenizer the run started with.")
-        self.model.load_state_dict(ckpt["model_state_dict"], strict=True)
-        if "optimizer_state_dict" in ckpt:
-            self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
-        self.start_epoch = int(ckpt.get("epoch", 0)) + 1
-        self.global_step = int(ckpt.get("global_step", 0))
-        self.best_val_loss = float(ckpt.get("best_val_loss", float("inf")))
+        if jax_ckpt:
+            sd = state_dict_from_jax(ckpt["params"],
+                                     ckpt["model_state"] or default_model_state(ckpt["params"]),
+                                     self.cfg.n_heads)
+            self.model.load_state_dict(sd, strict=True)
+            if ckpt["opt_named"] is not None:
+                restore_optimizer_from_named(self.optimizer, self.model, ckpt["opt_named"])
+        else:
+            self.model.load_state_dict(ckpt["model_state_dict"], strict=True)
+            if "optimizer_state_dict" in ckpt:
+                self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+        self.start_epoch = int(meta.get("epoch", 0)) + 1
+        self.global_step = int(meta.get("global_step", 0))
+        if jax_ckpt and ckpt["opt_named"] is None:
+            self._step_offset = self.global_step - self.optimizer.step_count
+        self.best_val_loss = float(meta.get("best_val_loss", float("inf")))
         self.logger.info(f"Loaded checkpoint. Resuming from Epoch {self.start_epoch}")
 
     # ------------------------------------------------------------------
@@ -185,11 +213,17 @@ class Trainer:
     def train_epoch(self, epoch):
         epoch_loss, num_batches = 0.0, 0
         start_time = time.time()
+        trace = None
+        if getattr(self.config, "profile_dir", None) and epoch == self.start_epoch:
+            trace = start_profiler_trace(self.config.profile_dir)
         for batch_idx, batch in enumerate(self.train_loader):
             if batch is None:
                 continue
             loss = self.train_step(batch, derive_seed(self.config.seed, epoch, batch_idx))
             self.losses.append(loss)
+            if trace is not None and batch_idx + 1 == PROFILE_BATCHES:
+                self._stop_trace(trace)
+                trace = None
             if math.isfinite(loss):
                 epoch_loss += loss
                 num_batches += 1
@@ -202,11 +236,17 @@ class Trainer:
                     f"Batch [{batch_idx + 1}/{len(self.train_loader)}] "
                     f"Loss: {loss:.4f} LR: {self.schedule(self.global_step):.2e}")
         self.flush_accumulation()
+        if trace is not None:
+            self._stop_trace(trace)
         self.sync_global_step()
         avg_loss = epoch_loss / max(num_batches, 1)
         self.logger.info(f"Epoch {epoch} Complete | Loss: {avg_loss:.4f} | "
                          f"Time: {time.time() - start_time:.1f}s")
         return avg_loss
+
+    def _stop_trace(self, trace):
+        self.profile_trace = stop_profiler_trace(trace)
+        self.logger.info(f"Profiler trace written to {self.profile_trace}")
 
     @torch.no_grad()
     def validate(self, epoch):

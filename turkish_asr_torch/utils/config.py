@@ -8,27 +8,28 @@ reference or JAX invocation runs unchanged, with three differences:
   run on CUDA tensors and their plain versions on CPU tensors, and no flag
   routes a CUDA tensor to a plain version.
 - ``--output_model_path`` defaults to a ``.pt`` file: the port writes the
-  reference's ``.pt`` checkpoints.
+  reference's ``.pt`` checkpoints (and resumes from a JAX ``.ckpt`` too).
 - the flags that only mean something on a TPU or in the JAX package
-  (``--mesh_shape``, ``--distributed``, ``--rng_impl``, ``--ctc_impl``,
-  ``--use_pallas``, ``--profile_dir``) and ``--remat_policy dots`` are
-  accepted at their defaults and refused otherwise.
+  (``--rng_impl``, ``--ctc_impl``, ``--use_pallas``) and the
+  multi-device flags not ported yet (``--mesh_shape``, ``--distributed``;
+  ROADMAP A6) are accepted at their defaults and refused otherwise.
+
+``--remat_policy full|dots`` and ``--profile_dir`` run as in the JAX
+package (``models/conformer.py``, ``utils/runtime.py``).
 """
 
 import argparse
 
 # flag -> (default, why another value is refused)
 _REFUSED = {
-    "mesh_shape": (None, "not ported: the port trains on one device (ROADMAP A11)"),
-    "distributed": (False, "not ported: multi-process training is queued (ROADMAP A11)"),
+    "mesh_shape": (None, "not ported: the port trains on one device (ROADMAP A6)"),
+    "distributed": (False, "not ported: multi-process training is queued (ROADMAP A6)"),
     "rng_impl": ("rbg", "not applicable: the port's dropout masks come from "
                         "torch.Generator seeds and the kernels' position hash"),
     "ctc_impl": ("auto", "not applicable: CTC runs the CUDA kernels on the card and "
                          "their plain version on the CPU"),
     "use_pallas": (False, "not applicable: the port's CUDA kernels take every "
                           "attention call on the card"),
-    "profile_dir": (None, "not ported: the port has no trace hook yet"),
-    "remat_policy": ("full", "not ported: only full per-block remat ('full') is"),
 }
 
 
@@ -91,7 +92,8 @@ def get_config(argv=None):
     parser.add_argument("--no_remat", action="store_true",
                         help="Disable per-block recomputation in the backward pass")
     parser.add_argument("--remat_policy", type=str, default="full", choices=["full", "dots"],
-                        help="Per-block recomputation policy; only 'full' is ported")
+                        help="Per-block recomputation policy: 'full' recomputes the block; "
+                             "'dots' saves the linear layers' products and recomputes the rest")
     parser.add_argument("--mesh_shape", type=str, default=None, help="JAX device mesh (not ported)")
     parser.add_argument("--distributed", action="store_true", help="Multi-host JAX (not ported)")
     parser.add_argument("--rng_impl", type=str, default="rbg", choices=["rbg", "threefry2x32"],
@@ -99,7 +101,8 @@ def get_config(argv=None):
     parser.add_argument("--ctc_impl", type=str, default="auto", choices=["auto", "scan", "pallas"],
                         help="JAX CTC implementation (not applicable)")
     parser.add_argument("--use_pallas", action="store_true", help="Pallas TPU kernels (not applicable)")
-    parser.add_argument("--profile_dir", type=str, default=None, help="jax.profiler trace (not ported)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="Write a torch.profiler Chrome trace of the first 20 batches here")
 
     # --- The port's own ---
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda or cpu")
