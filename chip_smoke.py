@@ -128,16 +128,39 @@ Phases; any failure raises and the script exits non-zero.
    process and run at B=2 x T=200 and B=16 x 24 s: within 1e-4 of the eager
    fp32 model, and exactly 8 attention forward launches a forward
    (``export_launches`` in the kernels line); then ``--format torch``.
-13. Memorization: ``turkish_asr_torch/scripts/overfit.py`` on the card in
+13. Parallel (turkish_asr_torch/parallel/): two ranks on cuda:0 over
+   gloo (NCCL refuses two ranks on one card), started by this script
+   (``--parallel-rank``) with a FileStore in a temp dir, at flagship
+   width. Meshes data=2, model=2 and seq=2 each run 3 steps at B=32 in
+   fp32 with dropout 0: losses within 1e-4 relative of the one-process
+   trainer's on the same global batch, and the weights after the steps
+   within 1e-4 (the elements whose Adam gradient scale is under 1e-7,
+   rounding noise, within 3 lr: tests/test_torch_parallel.py); every rank
+   launches the attention and CTC kernels (the wrappers' counts over the 3
+   steps, and the last step's device kernels by name under torch.profiler,
+   both > 0). Then
+   data=2 in bf16 with dropout 0.1 and --augment: finite losses, the
+   replicas' weights bit-equal, and the two ranks' attention keep masks
+   (dump_keep_mask with each rank's mixed kernel seed) different. One rank
+   over NCCL (init_distributed at world size 1): the same 3 fp32 steps
+   within 1e-5 relative of the run without a process group. Served data
+   parallelism: ASRInference on the visible cards and on two replicas on
+   cuda:0 gives the one-replica texts (fp32). Wall ms a step and the
+   all-reduce calls and bytes a step for each mesh, and the launches, go
+   into a {"parallel": ...} JSON line. Two ranks time-sliced on one card
+   measure correctness and overhead, not scaling.
+14. Memorization: ``turkish_asr_torch/scripts/overfit.py`` on the card in
    bf16: loss under 0.1 after 300 steps, the five words decoded back.
 
-Each phase prints its seconds. The last four lines are a JSON line of
-phases 9-13's numbers, then the card, the kernels (launch counts from the
-training run, errors, chained and single-call times, bound_ms and
-bound_by from kernel_bounds, library_ms: the one torch call that computes
-the same function, or null where none does; kernel_ms for the CTC
-kernels; device kernels a call for the CTC, dump and SwiGLU kernels; the
-MHA shape's times under "mha") and {"ok": true, "device": {...}}.
+Each phase prints its seconds. The last five lines are a JSON line of
+phases 9-12's and 14's numbers, the parallel phase's JSON line, then the
+card, the kernels (launch counts from the training run, errors, chained
+and single-call times, bound_ms and bound_by from kernel_bounds,
+library_ms: the one torch call that computes the same function, or null
+where none does; kernel_ms for the CTC kernels; device kernels a call for
+the CTC, dump and SwiGLU kernels; the MHA shape's times under "mha"; each
+rank's launches in the parallel phase's data=2 steps) and {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -1365,11 +1388,13 @@ def _train_batch(B, seed, seconds=8):
             "sample_mask": np.ones(B, np.float32)}
 
 
-def _flagship_trainer(argv, model=None, steps=100):
+def _flagship_trainer(argv, model=None, steps=100, mesh=None):
     """A Trainer built as turkish_asr_torch.main builds one (flagship, char
-    tokenizer, bf16 unless argv says fp32), without data loaders."""
+    tokenizer, bf16 unless argv says fp32), without data loaders; on
+    ``mesh``, with the model sharded for it."""
     from turkish_asr_torch.data.tokenizer import CharTokenizer
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    from turkish_asr_torch.parallel.mesh import shard_model
     from turkish_asr_torch.train.optim import make_optimizer
     from turkish_asr_torch.train.trainer import Trainer
     from turkish_asr_torch.utils.config import get_config
@@ -1379,7 +1404,7 @@ def _flagship_trainer(argv, model=None, steps=100):
     if model is None:
         cfg = ModelConfig(**FLAGSHIP, n_classes=tok.vocab_size, dropout=config.encoder_dropout)
         model = init_model(cfg, torch.Generator().manual_seed(config.seed))
-    model = model.cuda()
+    model = shard_model(model, mesh).cuda()
     optimizer, schedule = make_optimizer(
         [p for p in model.parameters() if p.requires_grad], config.learning_rate,
         config.weight_decay, steps, pct_start=0.1, gradient_clip=config.gradient_clip,
@@ -1387,7 +1412,7 @@ def _flagship_trainer(argv, model=None, steps=100):
     return Trainer(model, optimizer, schedule, config, logging.getLogger("chip_smoke"),
                    tokenizer=tok, device="cuda", accumulation_steps=config.accumulation_steps,
                    compute_dtype=torch.bfloat16 if config.precision == "bf16" else torch.float32,
-                   augment=config.augment)
+                   augment=config.augment, mesh=mesh)
 
 
 def ckpt_phase(workdir, trained):
@@ -1646,6 +1671,258 @@ def memorize_phase():
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the parallel layer on one card.
+
+PARALLEL_MESHES = ("data=2", "model=2", "seq=2")
+PARALLEL_STEPS = 3
+PARALLEL_B = 32
+PARALLEL_FP32 = ["--precision", "fp32", "--encoder_dropout", "0"]
+PARALLEL_TIMEOUT = 300  # seconds for the two ranks; a hung collective fails the phase
+
+
+def _parallel_batches():
+    return [_train_batch(PARALLEL_B, 700 + i) for i in range(PARALLEL_STEPS)]
+
+
+def _parallel_init():
+    """The flagship model's seeded state dict, dropout 0 (its dropout rate
+    is the trainer's flag, not a weight)."""
+    from turkish_asr_torch.data.tokenizer import CharTokenizer
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    cfg = ModelConfig(**FLAGSHIP, n_classes=CharTokenizer().vocab_size, dropout=0.0)
+    return cfg, init_model(cfg, torch.Generator().manual_seed(11)).state_dict()
+
+
+def _parallel_run(argv, mesh, batches, cfg, init, profile=False):
+    """PARALLEL_STEPS trainer steps on this rank's rows of ``batches`` (all
+    rows without a mesh): the losses, wall ms a step, the kernel launches,
+    the all-reduce traffic a step, the full weights and Adam's second
+    moments after the steps; with ``profile`` the device kernels of the
+    last step by name (torch.profiler)."""
+    import dataclasses
+    from turkish_asr_torch.models.conformer import ConformerCTC
+    from turkish_asr_torch.parallel.collectives import traffic
+    from turkish_asr_torch.parallel.mesh import gather_state_dict
+    from turkish_asr_torch.train.checkpoint import gather_optimizer_state
+    dropout = float(argv[argv.index("--encoder_dropout") + 1]) if "--encoder_dropout" in argv \
+        else 0.1
+    model = ConformerCTC(dataclasses.replace(cfg, dropout=dropout))
+    model.load_state_dict(init)
+    tr = _flagship_trainer(argv, model=model, mesh=mesh)
+    d, n = (0, 1) if mesh is None else (mesh.index("data"), mesh.size("data"))
+    losses, ms, kernels = [], [], {}
+    _reset_counts()
+    traffic.reset()
+    for i, batch in enumerate(batches):
+        local = {k: v[d::n] for k, v in batch.items()}
+        last = profile and i == len(batches) - 1
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA]) \
+            if last else None
+        start = time.perf_counter()
+        if prof is not None:
+            with prof:
+                losses.append(tr.train_step(local, seed=i))
+                torch.cuda.synchronize()
+        else:
+            losses.append(tr.train_step(local, seed=i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+        if prof is not None:
+            for name, names in PROFILED_KERNELS.items():
+                kernels[name] = sum(e.count for e in prof.key_averages()
+                                    if any(k in e.key for k in names))
+    out = {"losses": losses, "ms": ms, "launches": _counts(),
+           "traffic": {k: v / len(batches) for k, v in traffic.snapshot().items()},
+           "profiled_kernels": kernels}
+    out["state"] = {k: v.cpu() for k, v in gather_state_dict(tr.model.state_dict(), mesh).items()}
+    out["local_state"] = {k: v.cpu() for k, v in tr.model.state_dict().items()}
+    out["nu"] = dict(zip(tr.names, (v.cpu() for v in gather_optimizer_state(
+        tr.optimizer.state_dict(), tr.names, mesh)["nu"])))
+    return out
+
+
+def _parallel_rank(rank, world, tmp):
+    """One of the two ranks on cuda:0 (``python3 chip_smoke.py
+    --parallel-rank RANK WORLD DIR``): the fp32 meshes, then data=2 in
+    bf16 with dropout and --augment."""
+    import torch.distributed as dist
+    from turkish_asr_torch.models import attention
+    from turkish_asr_torch.ops.flash_attention import dump_keep_mask
+    from turkish_asr_torch.parallel.mesh import make_mesh, shard_seed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    cfg, init = torch.load(os.path.join(tmp, "init.pt"), weights_only=False)
+    batches = torch.load(os.path.join(tmp, "batches.pt"), weights_only=False)
+    out = {}
+    for spec in PARALLEL_MESHES:
+        out[spec] = _parallel_run(PARALLEL_FP32, make_mesh(spec, world), batches, cfg, init,
+                                  profile=True)
+        torch.cuda.empty_cache()
+    seeds = []
+    real = attention.flash_attention
+
+    def recording(q, k, v, mask, rate, seed, data_rank=0):
+        seeds.append((q.shape, rate, seed, data_rank))
+        return real(q, k, v, mask, rate, seed, data_rank=data_rank)
+
+    mesh = make_mesh("data=2", world)
+    with mock.patch.object(attention, "flash_attention", recording):
+        bf16 = _parallel_run(["--augment"], mesh, batches, cfg, init)
+    (B, H, T, _), rate, seed, data_rank = seeds[0]  # the first block's call in the first step
+    bf16["keep_mask"] = dump_keep_mask(B, H, T, shard_seed(seed, data_rank, bits=32), rate,
+                                       "cuda").cpu()
+    bf16["kernel_seed"] = shard_seed(seed, data_rank, bits=32)
+    out["bf16"] = bf16
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _noise_elements(nu, count):
+    """Elements whose Adam gradient scale sqrt(nu / (1 - b2^count)) is under
+    1e-7 (ten times eps): their update is lr * g / (|g| + eps) with g made
+    of rounding noise, so it follows the rounding (tests/test_torch_parallel.py)."""
+    return {k: torch.sqrt(v / (1 - 0.999 ** count)) < 1e-7 for k, v in nu.items()}
+
+
+def _weights_err(got, want, noise, lr=1e-3):
+    """(max |got - want| over the trainable elements whose gradient is not
+    rounding noise, max over those that are, the count of the latter)."""
+    main, rest, marked = 0.0, 0.0, 0
+    for k, n in noise.items():
+        d = (got[k].float() - want[k].float()).abs()
+        main = max(main, float(d[~n].max()) if (~n).any() else 0.0)
+        rest = max(rest, float(d[n].max()) if n.any() else 0.0)
+        marked += int(n.sum())
+    return main, rest, marked
+
+
+def parallel_phase(workdir, pt):
+    """The parallel layer on the card: two gloo ranks on cuda:0 against the
+    one-process trainer on the same global batch (data=2, model=2, seq=2 in
+    fp32 with dropout 0; then data=2 in bf16 with dropout and --augment),
+    a one-rank NCCL group, and served data parallelism."""
+    import socket
+    import torch.distributed as dist
+    from turkish_asr_torch.inference import ASRInference
+    from turkish_asr_torch.audio.wavio import write_wav
+    from turkish_asr_torch.parallel.mesh import init_distributed, make_mesh
+
+    tmp = os.path.join(workdir, "parallel")
+    os.makedirs(tmp)
+    cfg, init = _parallel_init()
+    batches = _parallel_batches()
+    torch.save((cfg, init), os.path.join(tmp, "init.pt"))
+    torch.save(batches, os.path.join(tmp, "batches.pt"))
+    start = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), "2", tmp], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        for p in procs:
+            logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - start
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+
+    one = _parallel_run(PARALLEL_FP32, None, batches, cfg, init)
+    noise = _noise_elements(one["nu"], PARALLEL_STEPS)
+    numbers = {"ranks_s": ranks_s, "one_process_ms": one["ms"], "meshes": {}}
+    for spec in PARALLEL_MESHES:
+        runs = [r[spec] for r in ranks]
+        loss_err = max(abs(a - b) / abs(b) for r in runs for a, b in zip(r["losses"],
+                                                                        one["losses"]))
+        main, rest, marked = _weights_err(runs[0]["state"], one["state"], noise)
+        launches = [{k: r["launches"][k] for k in ("flash_attention_fwd", "flash_attention_bwd",
+                                                   "ctc_fwd", "ctc_bwd")} for r in runs]
+        numbers["meshes"][spec] = {
+            "losses": runs[0]["losses"], "loss_rel_err": loss_err, "weights_err": main,
+            "noise_weights_err": rest, "noise_elements": marked,
+            "ms": [r["ms"] for r in runs], "allreduce": [r["traffic"] for r in runs],
+            "launches": launches, "profiled_kernels": [r["profiled_kernels"] for r in runs]}
+        print(f"parallel {spec}: losses {[round(x, 6) for x in runs[0]['losses']]} (one process "
+              f"{[round(x, 6) for x in one['losses']]}), max rel err {loss_err:.2e}; weights "
+              f"after {PARALLEL_STEPS} steps max|diff| {main:.2e} ({marked} rounding-noise "
+              f"elements: {rest:.2e}); ms a step {[[round(x, 1) for x in r['ms']] for r in runs]}"
+              f"; all-reduce a step {runs[0]['traffic']}; launches {launches}; profiled "
+              f"kernels {runs[0]['profiled_kernels']}", flush=True)
+        if loss_err > 1e-4 or main > 1e-4 or rest > 3e-3:
+            raise AssertionError(f"parallel {spec} differs from the one-process run: {loss_err}, "
+                                 f"{main}, {rest}")
+        profiled = [r["profiled_kernels"] for r in runs]
+        if not all(n > 0 for r in launches + profiled for n in r.values()):
+            raise AssertionError(f"parallel {spec}: a rank launched no kernel of the path: "
+                                 f"wrappers {launches}, torch.profiler {profiled}")
+    b0, b1 = (r["bf16"] for r in ranks)
+    equal = all(torch.equal(v, b1["local_state"][k]) for k, v in b0["local_state"].items())
+    masks_differ = not torch.equal(b0["keep_mask"], b1["keep_mask"])
+    numbers["bf16"] = {"losses": b0["losses"], "ms": [b0["ms"], b1["ms"]],
+                       "replicas_equal": equal, "keep_masks_differ": masks_differ,
+                       "kernel_seeds": [b0["kernel_seed"], b1["kernel_seed"]],
+                       "launches": [b0["launches"], b1["launches"]],
+                       "allreduce": [b0["traffic"], b1["traffic"]]}
+    print(f"parallel data=2 bf16 dropout 0.1 --augment: losses "
+          f"{[round(x, 4) for x in b0['losses']]}, replicas bit-equal {equal}, kernel seeds "
+          f"{numbers['bf16']['kernel_seeds']}, keep masks differ {masks_differ}, ms a step "
+          f"{[[round(x, 1) for x in b['ms']] for b in (b0, b1)]}", flush=True)
+    if not (all(math.isfinite(x) for x in b0["losses"]) and equal and masks_differ):
+        raise AssertionError(f"parallel data=2 bf16: {numbers['bf16']}")
+
+    # One rank over NCCL: the trainer's step through init_distributed().
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    with mock.patch.dict(os.environ, env):
+        init_distributed("cuda", required=True)
+    try:
+        backend = dist.get_backend()
+        nccl = _parallel_run(PARALLEL_FP32, make_mesh(None, 1), batches, cfg, init)
+    finally:
+        dist.destroy_process_group()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(nccl["losses"], one["losses"]))
+    main, rest, marked = _weights_err(nccl["state"], one["state"], noise)
+    numbers["nccl"] = {"backend": backend, "losses": nccl["losses"], "loss_rel_err": loss_err,
+                       "weights_err": main, "noise_weights_err": rest, "ms": nccl["ms"],
+                       "allreduce": nccl["traffic"]}
+    print(f"one rank over {backend}: losses {[round(x, 6) for x in nccl['losses']]}, max rel err "
+          f"{loss_err:.2e}, weights max|diff| {main:.2e} (noise elements {rest:.2e}), all-reduce "
+          f"a step {nccl['traffic']}, ms a step {[round(x, 1) for x in nccl['ms']]}", flush=True)
+    if backend != "nccl" or loss_err > 1e-5 or main > 1e-4 or rest > 3e-3:
+        raise AssertionError(f"one-rank NCCL run differs: {numbers['nccl']}")
+
+    # Served data parallelism: the rows of a batch split over two replicas.
+    files = []
+    for i, seconds in enumerate((1, 3, 5, 8, 2, 6)):
+        files.append(os.path.join(tmp, f"req{i}.wav"))
+        write_wav(files[-1], _tone(seconds, 300 + i), SR)
+    texts = {}
+    for name, kw in (("one", {"data_parallel": False}), ("visible", {"data_parallel": True}),
+                     ("two", {"data_parallel": True, "devices": ["cuda:0", "cuda:0"]})):
+        asr = ASRInference(pt, compute_dtype=torch.float32, **kw)
+        texts[name] = (asr.transcribe_files(files, batch_size=4), len(asr.replicas))
+    numbers["served"] = {k: {"replicas": n} for k, (_, n) in texts.items()}
+    print(f"served data parallelism: replicas {[n for _, n in texts.values()]}, texts equal "
+          f"{texts['two'][0] == texts['visible'][0] == texts['one'][0]}", flush=True)
+    if not texts["two"][0] == texts["visible"][0] == texts["one"][0] or texts["two"][1] != 2:
+        raise AssertionError(f"served data parallelism: {texts}")
+    return numbers
+
+
 def _phase(name, fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -1654,6 +1931,9 @@ def _phase(name, fn, *args):
 
 
 def main():
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        _parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -1686,8 +1966,9 @@ def main():
         ckpt, numbers = _phase("ckpt", ckpt_phase, workdir, trained)
         numbers = {"ckpt": numbers, "remat": _phase("remat", remat_phase),
                    "profile": _phase("profile", profile_phase, workdir),
-                   "export": _phase("export", export_phase, workdir, ckpt),
-                   "memorization": _phase("memorization", memorize_phase)}
+                   "export": _phase("export", export_phase, workdir, ckpt)}
+        parallel = _phase("parallel", parallel_phase, workdir, pt)
+        numbers["memorization"] = _phase("memorization", memorize_phase)
     print(f"all phases: {time.perf_counter() - start:.3f} s", flush=True)
 
     replaces = {
@@ -1734,6 +2015,10 @@ def main():
             entry["serving"] = {k: times["serve"][name][k] for k in keys}
         if name in ("ctc_fwd", "ctc_bwd"):
             entry["kernel_ms"] = t["kernel_ms"]
+        if name in ("flash_attention_fwd", "flash_attention_bwd", "ctc_fwd", "ctc_bwd"):
+            # each rank's launches in the parallel phase's 3 data=2 steps
+            entry["parallel_launches"] = [r[name] for r in
+                                          parallel["meshes"]["data=2"]["launches"]]
         if name in ("ctc_fwd", "ctc_bwd", "dropout_mask", "swiglu_fwd"):
             entry["device_kernels_per_call"] = t["device_kernels_per_call"]
         if name == "dropout_mask":
@@ -1744,6 +2029,7 @@ def main():
         kernels.append(entry)
     print(json.dumps({"beam": beam}))
     print(json.dumps(numbers))
+    print(json.dumps({"parallel": parallel}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -610,3 +610,41 @@ def test_swiglu_ab_script_prints_its_lines(cuda):
     assert sw.swiglu.launches > before
     assert set(result["tiles"]) == set(sw.ROW_TILES) and result["chain"]["ms"] > 0
     assert all(r["ms"] > 0 and r["max_err"] < 0.1 for r in result["tiles"].values())
+
+
+@pytest.mark.cuda
+def test_data_parallel_ranks_launch_the_kernels_on_one_card(cuda, tmp_path):
+    """data=2 over gloo with both ranks on the card (tests/torch_parallel_worker.py):
+    each rank launches the attention and CTC kernels on its rows, the
+    replicas agree bit for bit, and the losses are the one-process run's
+    on the global batch (fp32: 1e-4 relative)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_worker as W
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+
+    cfg = dict(n_mels=80, d_model=64, n_heads=4, n_blocks=1, n_classes=56, dropout=0.0)
+    torch.save(init_model(ModelConfig(**cfg), torch.Generator().manual_seed(0)).state_dict(),
+               tmp_path / "init.pt")
+    rng = np.random.default_rng(0)
+    batches = [{"waveforms": (rng.standard_normal((4, 8000)) * 0.1).astype(np.float32),
+                "wav_lengths": np.asarray([8000, 6500, 5000, 7300], np.int32),
+                "targets": rng.integers(2, 30, (4, 4)).astype(np.int32),
+                "target_lengths": np.asarray([4, 3, 2, 4], np.int32),
+                "sample_mask": np.ones(4, np.float32)} for _ in range(2)]
+    torch.save([[b] for b in batches], tmp_path / "one.pt")
+    torch.save([[{k: v[d::2] for k, v in b.items()} for d in range(2)] for b in batches],
+               tmp_path / "two.pt")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one = W.train(str(tmp_path), cfg, str(tmp_path / "init.pt"), str(tmp_path / "one.pt"),
+                  device="cuda")
+    ranks = W.run_ranks(tmp_path, "train", 2, timeout=300, cfg=cfg,
+                        init=str(tmp_path / "init.pt"), batches=str(tmp_path / "two.pt"),
+                        mesh_spec="data=2", device="cuda")
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-4)
+        assert all(n > 0 for n in r["launches"].values()), r["launches"]
+    for k, v in ranks[1]["local_state"].items():
+        assert torch.equal(v, ranks[0]["local_state"][k]), k

@@ -58,6 +58,9 @@ SLICE_MODULES = [
     "turkish_asr_torch.utils.runtime",
     "turkish_asr_torch.export_model",
     "turkish_asr_torch.scripts.overfit",
+    "turkish_asr_torch.parallel",
+    "turkish_asr_torch.parallel.mesh",
+    "turkish_asr_torch.parallel.collectives",
 ]
 
 

@@ -38,6 +38,7 @@ from turkish_asr_tpu.train.optim import torch_onecycle_schedule as jax_schedule
 from turkish_asr_torch.audio.wavio import write_wav
 from turkish_asr_torch.data.tokenizer import CharTokenizer
 from turkish_asr_torch.models.conformer import ConformerCTC, ModelConfig, init_model
+from turkish_asr_torch.parallel.mesh import make_mesh
 from turkish_asr_torch.train.optim import (
     ClippedAdamW, MultiSteps, make_optimizer, torch_onecycle_schedule)
 from turkish_asr_torch.train.trainer import Trainer
@@ -326,8 +327,19 @@ def test_main_trains_resumes_and_serves(tmp_path):
 @pytest.mark.parametrize("flag", [["--use_pallas"], ["--ctc_impl", "scan"], ["--mesh_shape", "data=4"],
                                   ["--distributed"], ["--rng_impl", "threefry2x32"]])
 def test_tpu_only_flags_are_refused(flag):
-    with pytest.raises(ValueError, match="not ported|not applicable"):
-        get_config(flag)
+    """The TPU-only flags are refused. The multi-device flags are ported:
+    they parse, and a mesh the world size cannot hold is refused by the
+    mesh, as JAX ``make_mesh`` refuses it."""
+    if flag[0] in ("--mesh_shape", "--distributed"):
+        config = get_config(flag)
+        assert (config.mesh_shape, config.distributed) == (
+            ("data=4", False) if flag[0] == "--mesh_shape" else (None, True))
+        if config.mesh_shape:
+            with pytest.raises(ValueError, match="mesh data=4 needs 4 devices, have 1"):
+                make_mesh(config.mesh_shape, 1)
+    else:
+        with pytest.raises(ValueError, match="not applicable"):
+            get_config(flag)
     defaults = get_config([])
     assert (defaults.batch_size, defaults.encoder_dropout, defaults.learning_rate) == (32, 0.1, 5e-4)
 

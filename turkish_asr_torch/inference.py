@@ -16,10 +16,18 @@ auto|device|hash|host --lm_weight 0.3 --word_bonus 0.5] [--evaluate]
 
 The model is a reference-format ``.pt`` or the JAX package's ``.ckpt``
 (``utils/weights.load_model``; a ``.ckpt`` is read without jax, flax or
-msgpack). Not ported yet (ROADMAP A6): the multi-device mesh.
+msgpack).
+
+Data parallelism (``data_parallel``, the default, as in the JAX package's
+``ASRInference``): the model has a replica on every visible CUDA device,
+and a batched forward's rows are split over them in order and the logits
+concatenated on the first. Training over a mesh of processes is
+``torchrun --nproc_per_node N -m turkish_asr_torch.main --mesh_shape
+data=N ...`` (``turkish_asr_torch/main.py``).
 """
 
 import argparse
+import copy
 import os
 from pathlib import Path
 
@@ -67,13 +75,26 @@ class ASRInference:
     def __init__(self, model_path, n_heads=4, use_beam_search=False, beam_width=10,
                  lm_path=None, lm_fusion="auto", lm_weight=0.3, word_bonus=0.5,
                  compute_dtype=torch.bfloat16, tokenizer_path=None, trust_checkpoint=False,
-                 device="cuda"):
+                 device="cuda", data_parallel=True, devices=None):
+        """``data_parallel``: batched forwards split their rows over a
+        replica of the model on each of ``devices`` (default: every
+        visible CUDA device when ``device`` is a CUDA device; the first
+        is ``device``'s). Off, or with one device, one model runs all rows."""
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.tokenizer = load_tokenizer(tokenizer_path)
         self.cfg, self.model = load_model(model_path, self.device, n_heads=n_heads,
                                           allow_pickle=trust_checkpoint)
         _check_vocab_match(self.cfg.n_classes, self.tokenizer, model_path)
+        self.replicas = [self.model]
+        if data_parallel:
+            if devices is None and self.device.type == "cuda":
+                first = torch.device("cuda", torch.cuda.current_device()
+                                     if self.device.index is None else self.device.index)
+                devices = [first] + [torch.device("cuda", i) for i in
+                                     range(torch.cuda.device_count()) if i != first.index]
+            for dev in (devices or [])[1:]:
+                self.replicas.append(copy.deepcopy(self.model).to(resolve_device(dev)))
         self.use_beam_search = use_beam_search
         self.decoder = None
         if use_beam_search:
@@ -140,12 +161,21 @@ class ASRInference:
     @torch.inference_mode()
     def _forward_batch(self, waveforms, lengths):
         """(B, S) float32 and (B,) int32 numpy -> (logits (B, T', V) fp32,
-        valid output frames (B,)), both on the device."""
-        wav = torch.from_numpy(waveforms).to(self.device)
-        lens = torch.from_numpy(lengths).to(self.device)
-        feats, frame_lengths = log_mel_spectrogram(wav, lens, n_mels=self.cfg.n_mels)
-        logits = self.model(feats, frame_lengths, self.compute_dtype)
-        return logits, frame_lengths // 4
+        valid output frames (B,)), both on the device. The rows are split
+        in order over the replicas (``data_parallel``); each replica's
+        launches are queued before any result is read."""
+        outs = []
+        for model, rows in zip(self.replicas, np.array_split(np.arange(len(lengths)),
+                                                             len(self.replicas))):
+            if len(rows) == 0:
+                continue
+            dev = next(model.parameters()).device
+            wav = torch.from_numpy(waveforms[rows]).to(dev)
+            lens = torch.from_numpy(lengths[rows]).to(dev)
+            feats, frame_lengths = log_mel_spectrogram(wav, lens, n_mels=self.cfg.n_mels)
+            outs.append((model(feats, frame_lengths, self.compute_dtype), frame_lengths // 4))
+        return (torch.cat([o[0].to(self.device) for o in outs]),
+                torch.cat([o[1].to(self.device) for o in outs]))
 
     def _forward_padded(self, waveform):
         n = waveform.shape[0]

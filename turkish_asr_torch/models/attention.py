@@ -8,6 +8,15 @@ dtype; the RoPE tables are cast to the activation dtype; the attention
 core is ``ops.flash_attention`` (the Hopper kernels on CUDA tensors, their
 plain versions on CPU tensors; differentiable, with attention-weight
 dropout inside the kernel in training), which returns fp32 context.
+
+On a mesh (``parallel/mesh.py``) ``linear_q`` holds this "model" rank's
+heads and ``linear_out`` their input columns (row-parallel, one all-reduce
+after it); ``linear_k``/``linear_v`` (one KV head) are replicated. The
+kernel runs on every head and all ``T'`` frames, gathered over "model"
+and "seq" at its entry as JAX's ``shard_map(P("data"))`` gathers them,
+and each rank keeps its heads and frames of the context. Each model rank's
+gradient into k and v covers its heads only, so k and v pass through
+``copy_to``, whose backward sums them over the model group.
 """
 
 import threading
@@ -18,6 +27,8 @@ import torch
 from torch import nn
 
 from turkish_asr_torch.ops.flash_attention import flash_attention
+from turkish_asr_torch.parallel.collectives import all_gather, copy_to, reduce_from
+from turkish_asr_torch.parallel.mesh import axis_group, seq_bounds
 
 
 @lru_cache(maxsize=16)
@@ -86,20 +97,23 @@ def in_dense_product():
     return _DENSE.depth > 0
 
 
-def dense(linear, x, compute_dtype):
+def dense(linear, x, compute_dtype, group=None):
     """``x @ W^T + b``: the product in ``compute_dtype``, the bias added in
     fp32, the result cast back to ``compute_dtype``.
 
     JAX keeps the product in fp32 before the bias add; PyTorch has no
     bf16 GEMM with an fp32 result on the CPU, so under bf16 the product is
     rounded to bf16 once more than in JAX. In fp32 the two agree.
+
+    With ``group`` the layer is row-parallel: the fp32 partial products
+    are summed over the group (``reduce_from``) before the one bias add.
     """
     _DENSE.depth += 1
     try:
         out = torch.matmul(x.to(compute_dtype), linear.weight.to(compute_dtype).t())
     finally:
         _DENSE.depth -= 1
-    return (out.float() + linear.bias.float()).to(compute_dtype)
+    return (reduce_from(out.float(), group) + linear.bias.float()).to(compute_dtype)
 
 
 class RotaryEmbedding(nn.Module):
@@ -115,6 +129,8 @@ class MultiQueryAttention(nn.Module):
     """Self-attention with RoPE and one shared KV head (``use_mqa``), or
     per-head K/V."""
 
+    mesh = None
+
     def __init__(self, d_model, n_heads, use_mqa=True):
         super().__init__()
         self.n_heads = n_heads
@@ -127,22 +143,37 @@ class MultiQueryAttention(nn.Module):
         self.linear_v = nn.Linear(d_model, kv_dim)
         self.linear_out = nn.Linear(d_model, d_model)
 
-    def forward(self, x, mask=None, compute_dtype=torch.float32, dropout=0.0, seed=0):
+    def forward(self, x, mask=None, compute_dtype=torch.float32, dropout=0.0, seed=0,
+                span=None):
         """x (B, T, D) normalized input; mask (B, T) bool. -> (B, T, D).
 
         ``dropout`` > 0 drops attention weights inside the attention kernel
-        with the position hash keyed by ``seed`` (training)."""
-        B, T, D = x.shape
+        with the position hash keyed by ``seed`` (training). Over "seq" x
+        holds frames t0:t1 of ``span`` (t0, t1, T) and ``mask`` all T."""
+        model, seq = axis_group(self.mesh, "model"), axis_group(self.mesh, "seq")
+        B, Tl, D = x.shape
         H, Kh, Dh = self.n_heads, self.kv_heads, self.d_head
-        q = dense(self.linear_q, x, compute_dtype).reshape(B, T, H, Dh)
-        k = dense(self.linear_k, x, compute_dtype).reshape(B, T, Kh, Dh)
-        v = dense(self.linear_v, x, compute_dtype).reshape(B, T, Kh, Dh)
+        Hl = H // (1 if model is None else model.size)
+        q = dense(self.linear_q, copy_to(x, model), compute_dtype).reshape(B, Tl, Hl, Dh)
+        k = copy_to(dense(self.linear_k, x, compute_dtype), model).reshape(B, Tl, Kh, Dh)
+        v = copy_to(dense(self.linear_v, x, compute_dtype), model).reshape(B, Tl, Kh, Dh)
+        q = all_gather(q, 2, model)
+        if seq is not None:
+            sizes = [b - a for a, b in seq_bounds(span[2], seq.size)]
+            q, k, v = (all_gather(t, 1, seq, sizes) for t in (q, k, v))
+        T = q.shape[1]
         tables = rope_tables if isinstance(T, torch.SymInt) else rope_cos_sin
         cos, sin = tables(T, Dh, q.dtype, q.device)
         cos, sin = cos[None, :, None, :], sin[None, :, None, :]
         q = apply_rope(q, cos, sin).transpose(1, 2).contiguous()  # (B, H, T, Dh)
         k = apply_rope(k, cos, sin).transpose(1, 2).contiguous()  # (B, Kh, T, Dh)
         v = v.transpose(1, 2).contiguous()
-        context, _ = flash_attention(q, k, v, mask, dropout, seed)
-        context = context.transpose(1, 2).reshape(B, T, D)
-        return dense(self.linear_out, context, compute_dtype)
+        # On a mesh the kernel's seed takes the data rank (``flash_attention``).
+        shard = {} if self.mesh is None else {"data_rank": self.mesh.index("data")}
+        context, _ = flash_attention(q, k, v, mask, dropout, seed, **shard)
+        context = context.transpose(1, 2)  # (B, T, H, Dh)
+        if model is not None or seq is not None:  # this rank's frames and heads
+            t0, t1 = (0, T) if seq is None else span[:2]
+            h0 = 0 if model is None else model.index * Hl
+            context = context[:, t0:t1, h0:h0 + Hl]
+        return dense(self.linear_out, context.reshape(B, Tl, Hl * Dh), compute_dtype, model)

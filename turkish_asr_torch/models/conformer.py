@@ -25,6 +25,23 @@ the arithmetic is written out so its cast points follow the JAX package:
   site): ``torch.utils.checkpoint`` restores no explicit generator, so a
   per-block recompute must draw its masks from the same seeds as the first
   forward.
+
+On a mesh (``parallel/mesh.py``; ``shard_model`` hands every module the
+mesh and its parameter slices) the model computes the one-process model's
+function, with the collectives of ``parallel/collectives.py``:
+
+- ``data``: BatchNorm statistics are summed over the (data, seq) ranks;
+  the data rank is mixed into every dropout seed (``shard_seed``).
+- ``model``: the SwiGLU in-projection is column-parallel and its
+  out-projection row-parallel, with one all-reduce after it and the bias
+  added once; attention's ``q`` holds this rank's heads and ``out`` is
+  row-parallel (``models/attention.py``).
+- ``seq``: the subsample convolutions run on the full input; the ``T'``
+  frames are split (unevenly when they do not divide) and gathered again
+  as logits, so CTC sees full rows. GroupNorm sums over the seq ranks, the
+  depthwise convolution takes a halo of (k-1)/2 frames on each side.
+- dropout draws each mask at the one-process shape and takes this rank's
+  slice, so replicated activations get the same mask on every rank.
 """
 
 import math
@@ -37,6 +54,8 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from turkish_asr_torch.models.attention import MultiQueryAttention, dense, in_dense_product
+from turkish_asr_torch.parallel.collectives import all_gather, all_reduce, copy_to, halo
+from turkish_asr_torch.parallel.mesh import axis_group, seq_bounds, shard_seed
 
 
 @dataclass(frozen=True)
@@ -65,8 +84,9 @@ def groupnorm_groups(num_channels, preferred=32):
     return 1
 
 
-def group_norm(norm, x, mask=None, eps=1e-5):
-    """GroupNorm on (B, T, C) with fp32 statistics per (sample, group)."""
+def group_norm(norm, x, mask=None, eps=1e-5, group=None):
+    """GroupNorm on (B, T, C) with fp32 statistics per (sample, group);
+    with ``group`` (seq) the frames of every rank of the group count."""
     B, T, C = x.shape
     G = norm.num_groups
     cg = C // G
@@ -75,16 +95,16 @@ def group_norm(norm, x, mask=None, eps=1e-5):
     def group_sum(per_channel):  # (B, C) -> per-group sums broadcast to (B, C)
         return per_channel.reshape(B, G, cg).sum(-1).repeat_interleave(cg, dim=-1)
 
-    if mask is None:
+    if mask is None and group is None:
         mean = group_sum(xf.sum(dim=1)) / (T * cg)
         d = xf - mean[:, None, :]
         var = group_sum((d * d).sum(dim=1)) / (T * cg)
     else:
-        m = mask.float()[:, :, None]
-        denom = torch.clamp(m.sum(dim=1) * cg, min=1.0)
-        mean = group_sum((xf * m).sum(dim=1)) / denom
+        m = x.new_ones((B, T, 1), dtype=torch.float32) if mask is None else mask.float()[:, :, None]
+        denom = torch.clamp(all_reduce(m.sum(dim=1), group) * cg, min=1.0)
+        mean = group_sum(all_reduce((xf * m).sum(dim=1), group)) / denom
         d = xf - mean[:, None, :]
-        var = group_sum((d * d * m).sum(dim=1)) / denom
+        var = group_sum(all_reduce((d * d * m).sum(dim=1), group)) / denom
     xn = d * torch.rsqrt(var + eps)[:, None, :]
     return (xn * norm.weight + norm.bias).to(x.dtype)
 
@@ -92,12 +112,14 @@ def group_norm(norm, x, mask=None, eps=1e-5):
 class TransposeGroupNorm(nn.Module):
     """GroupNorm over the channels of a (B, T, C) input (reference name)."""
 
+    mesh = None
+
     def __init__(self, d_model):
         super().__init__()
         self.norm = nn.GroupNorm(groupnorm_groups(d_model), d_model)
 
     def forward(self, x, mask=None):
-        return group_norm(self.norm, x, mask)
+        return group_norm(self.norm, x, mask, group=axis_group(self.mesh, "seq"))
 
 
 # Dropout sites of a block; each draws its mask from its own seed.
@@ -115,31 +137,48 @@ def derive_seed(*parts):
     return h >> 1
 
 
-def dropout(x, rate, seed):
+def dropout(x, rate, seed, span=None, model=None):
     """JAX ``_dropout``: keep with probability 1 - rate, scale kept values
     by 1/(1 - rate) in x's dtype. The mask comes from a generator seeded
-    with ``seed`` on x's device; no dropout for rate 0 or seed None."""
+    with ``seed`` on x's device; no dropout for rate 0 or seed None.
+
+    On a mesh x is a slice of the one-process tensor: frames t0:t1 of T
+    with ``span`` (t0, t1, T), and this model rank's slice of the last dim
+    with ``model``. The mask is drawn at the full shape and sliced."""
     if rate <= 0.0 or seed is None:
         return x
     gen = torch.Generator(device=x.device)
     gen.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    shape, index = list(x.shape), [slice(None)] * x.dim()
+    if span is not None:
+        t0, t1, shape[1] = span
+        index[1] = slice(t0, t1)
+    if model is not None:
+        n = x.shape[-1]
+        shape[-1] = n * model.size
+        index[-1] = slice(model.index * n, (model.index + 1) * n)
+    keep = torch.rand(shape, generator=gen, device=x.device)[tuple(index)] < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class SwiGLUFeedForward(nn.Module):
+    mesh = None
+
     def __init__(self, d_model, d_ff):
         super().__init__()
         self.linear1 = nn.Linear(d_model, 2 * d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
 
-    def forward(self, x, compute_dtype, rate=0.0, seeds=(None, None)):
+    def forward(self, x, compute_dtype, rate=0.0, seeds=(None, None), span=None):
         """``seeds``: the dropout seeds after the gate product and after
-        the output projection."""
-        h = dense(self.linear1, x, compute_dtype)
+        the output projection; ``span``: ``dropout``'s. Over "model",
+        linear1 holds this rank's units of h1 and of h2 (column-parallel)
+        and linear2 the same units of its input (row-parallel)."""
+        model = axis_group(self.mesh, "model")
+        h = dense(self.linear1, copy_to(x, model), compute_dtype)
         h1, h2 = h.chunk(2, dim=-1)
-        h = dropout(F.silu(h1) * h2, rate, seeds[0])
-        return dropout(dense(self.linear2, h, compute_dtype), rate, seeds[1])
+        h = dropout(F.silu(h1) * h2, rate, seeds[0], span, model)
+        return dropout(dense(self.linear2, h, compute_dtype, model), rate, seeds[1], span)
 
 
 def _conv_out(out, bias, compute_dtype):
@@ -147,20 +186,25 @@ def _conv_out(out, bias, compute_dtype):
     return (out.float() + bias.float()).to(compute_dtype)
 
 
-def batch_norm_train(bn, x, mask=None, momentum=0.1):
+def batch_norm_train(bn, x, mask=None, momentum=0.1, group=None):
     """BatchNorm over (B, T, C) with batch statistics, as
     torch.nn.BatchNorm1d trains: the biased variance normalizes, the
     unbiased variance updates the running estimate. With ``mask`` (B, T)
-    the statistics span the valid frames only.
+    the statistics span the valid frames only; with ``group`` (the data x
+    seq ranks) the frames of every rank of the group: the sums, the
+    centred sum of squares and the count are all-reduced, so the
+    statistics are the global batch's, as under pjit. (SyncBatchNorm
+    would not do: it ignores the frame mask.)
 
     Returns (y in x's dtype, (new running mean, new running var)); the
     module's buffers are not touched."""
     xf = x.float()
-    if mask is not None:
-        m = mask.float()[:, :, None]
-        n = torch.clamp(m.sum(), min=1.0)
-        mean = (xf * m).sum(dim=(0, 1)) / n
-        var = torch.where(m > 0, (xf - mean) ** 2, 0.0).sum(dim=(0, 1)) / n
+    if mask is not None or group is not None:
+        m = (x.new_ones((*x.shape[:2], 1), dtype=torch.float32) if mask is None
+             else mask.float()[:, :, None])
+        n = torch.clamp(all_reduce(m.sum(), group), min=1.0)
+        mean = all_reduce((xf * m).sum(dim=(0, 1)), group) / n
+        var = all_reduce(torch.where(m > 0, (xf - mean) ** 2, 0.0).sum(dim=(0, 1)), group) / n
         unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
     else:
         mean = xf.mean(dim=(0, 1))
@@ -176,6 +220,8 @@ def batch_norm_train(bn, x, mask=None, momentum=0.1):
 class ConformerConvModule(nn.Module):
     """GroupNorm -> pointwise(2d) -> GLU -> depthwise(k) -> BN -> SiLU -> pointwise."""
 
+    mesh = None
+
     def __init__(self, d_model, kernel_size):
         super().__init__()
         self.norm = TransposeGroupNorm(d_model)
@@ -185,8 +231,10 @@ class ConformerConvModule(nn.Module):
         self.batch_norm = nn.BatchNorm1d(d_model)
         self.pointwise_conv2 = nn.Conv1d(d_model, d_model, 1)
 
-    def forward(self, x, compute_dtype, norm_mask=None, train=False):
-        """-> output, or (output, new BatchNorm running stats) with ``train``."""
+    def forward(self, x, compute_dtype, norm_mask=None, train=False, span=None):
+        """-> output, or (output, new BatchNorm running stats) with ``train``.
+        Over "seq" (``span``: this rank's frames t0:t1 of T) the depthwise
+        convolution takes (k-1)/2 frames of halo from the ranks beside."""
         d = x.shape[-1]
         cd = compute_dtype
         h = self.norm(x, norm_mask)
@@ -199,12 +247,19 @@ class ConformerConvModule(nn.Module):
         if norm_mask is not None:
             h = torch.where(norm_mask[:, :, None], h, 0)  # bias leaks via pw1
         dw = self.depthwise_conv
-        h = F.conv1d(h.transpose(1, 2).to(cd), dw.weight.to(cd), padding=dw.padding,
-                     groups=dw.groups).transpose(1, 2)
-        h = _conv_out(h, dw.bias, cd)
+        seq = axis_group(self.mesh, "seq")
+        if seq is None:
+            h = F.conv1d(h.transpose(1, 2).to(cd), dw.weight.to(cd), padding=dw.padding,
+                         groups=dw.groups)
+        else:
+            sizes = [b - a for a, b in seq_bounds(span[2], seq.size)]
+            h = halo(h.to(cd), dw.padding[0], seq, sizes)
+            h = F.conv1d(h.transpose(1, 2), dw.weight.to(cd), groups=dw.groups)
+        h = _conv_out(h.transpose(1, 2), dw.bias, cd)
         bn = self.batch_norm
         if train:
-            h, stats = batch_norm_train(bn, h, norm_mask)
+            h, stats = batch_norm_train(bn, h, norm_mask,
+                                        group=axis_group(self.mesh, "data", "seq"))
         else:
             hn = (h.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
             h = (hn * bn.weight + bn.bias).to(cd)
@@ -215,6 +270,8 @@ class ConformerConvModule(nn.Module):
 
 
 class ConformerBlock(nn.Module):
+    mesh = None
+
     def __init__(self, cfg):
         super().__init__()
         d, d_ff = cfg.d_model, cfg.d_model * cfg.ff_mult
@@ -233,24 +290,30 @@ class ConformerBlock(nn.Module):
 
     def forward(self, x, mask, compute_dtype, train=False, seed=None):
         """-> output, or (output, new BatchNorm running mean, var) with
-        ``train``; ``seed`` (the block's) keys its dropout masks."""
-        nm = mask if (self.masked_norm and mask is not None) else None
+        ``train``; ``seed`` (the block's) keys its dropout masks. Over
+        "seq" x holds this rank's frames and ``mask`` all T' frames."""
+        seq = axis_group(self.mesh, "seq")
+        T = x.shape[1] if seq is None else mask.shape[1]
+        t0, t1 = (0, T) if seq is None else seq_bounds(T, seq.size)[seq.index]
+        span = (t0, t1, T)
+        local = mask if (mask is None or seq is None) else mask[:, t0:t1]
+        nm = local if (self.masked_norm and mask is not None) else None
         rate = self.dropout if (train and seed is not None) else 0.0
+        data_rank = 0 if self.mesh is None else self.mesh.index("data")
 
         def site(i):
-            return derive_seed(seed, i) if rate > 0.0 else None
+            return shard_seed(derive_seed(seed, i), data_rank) if rate > 0.0 else None
 
         x = x + 0.5 * self.ff1(self.norm_ff1(x, nm), compute_dtype, rate,
-                               (site(SITE_FF1_GATE), site(SITE_FF1_OUT)))
-        attn_seed = site(SITE_ATTN)
-        x = x + self.attn(self.norm_attn(x, nm), mask, compute_dtype, rate,
-                          0 if attn_seed is None else attn_seed & 0xFFFFFFFF)
-        conv = self.conv(x, compute_dtype, nm, train)
+                               (site(SITE_FF1_GATE), site(SITE_FF1_OUT)), span)
+        attn_seed = derive_seed(seed, SITE_ATTN) & 0xFFFFFFFF if rate > 0.0 else 0
+        x = x + self.attn(self.norm_attn(x, nm), mask, compute_dtype, rate, attn_seed, span)
+        conv = self.conv(x, compute_dtype, nm, train, span)
         if train:
             conv, stats = conv
         x = x + conv
         x = x + 0.5 * self.ff2(self.norm_ff2(x, nm), compute_dtype, rate,
-                               (site(SITE_FF2_GATE), site(SITE_FF2_OUT)))
+                               (site(SITE_FF2_GATE), site(SITE_FF2_OUT)), span)
         out = self.final_norm(x, nm)
         return (out, *stats) if train else out
 
@@ -276,6 +339,8 @@ def dots_context():
 class ConformerCTC(nn.Module):
     """Two stride-2 Conv2d + SiLU subsample, input projection, Conformer
     blocks, linear CTC head. ``forward`` returns fp32 logits."""
+
+    mesh = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -308,15 +373,21 @@ class ConformerCTC(nn.Module):
             h = F.silu((h.float() + conv.bias.float()[:, None, None]).to(cd))
         B, C, Th, Fh = h.shape
         h = h.permute(0, 2, 1, 3).reshape(B, Th, C * Fh)  # channel-major (C, F)
-        h = dense(self.input_proj, h, cd)
         mask = None
         if input_lengths is not None:
             sub = input_lengths.to(torch.int64) // 4
             mask = torch.arange(Th, device=h.device)[None, :] < sub[:, None]
+        seq = axis_group(self.mesh, "seq")
+        if seq is not None:  # this rank's frames; the blocks get the full mask
+            bounds = seq_bounds(Th, seq.size)
+            h = h[:, slice(*bounds[seq.index])]
+            if mask is None:
+                mask = torch.ones((B, Th), dtype=torch.bool, device=h.device)
+        h = dense(self.input_proj, h, cd)
         if not train:
             for block in self.blocks:
                 h = block(h, mask, cd)
-            return dense(self.fc, h, cd).float()
+            return self._logits(h, cd, Th)
         if remat not in (False, None, True, "full", "dots"):
             raise ValueError(f"remat must be False, 'full' or 'dots', got {remat!r}")
         context = {"context_fn": dots_context} if remat == "dots" else {}
@@ -329,7 +400,17 @@ class ConformerCTC(nn.Module):
             else:
                 h, mean, var = block(h, mask, cd, True, block_seed)
             bn_state.append((mean, var))
-        return dense(self.fc, h, cd).float(), bn_state
+        return self._logits(h, cd, Th), bn_state
+
+    def _logits(self, h, cd, T):
+        """fp32 logits of the blocks' output; over "seq" those of all T
+        frames, gathered (the loss after them is replicated)."""
+        logits = dense(self.fc, h, cd).float()
+        seq = axis_group(self.mesh, "seq")
+        if seq is None:
+            return logits
+        sizes = [b - a for a, b in seq_bounds(T, seq.size)]
+        return all_gather(logits, 1, seq, sizes, replicated=True)
 
     @torch.no_grad()
     def commit_batch_norm(self, bn_state):

@@ -43,6 +43,7 @@ from turkish_asr_torch.ops._build import load_library
 from turkish_asr_torch.ops._dropout import keep_mask_ref, keep_threshold
 from turkish_asr_torch.ops._flash_attention import (
     flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
+from turkish_asr_torch.parallel.mesh import shard_seed
 
 KERNEL_SOURCES = ("flash_attention_fwd.cu",)
 BWD_SOURCES = ("flash_attention_bwd.cu",)
@@ -287,16 +288,23 @@ class FlashAttention(torch.autograd.Function):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
-def flash_attention(q, k, v, mask=None, dropout_rate=0.0, seed=0):
+def flash_attention(q, k, v, mask=None, dropout_rate=0.0, seed=0, data_rank=0):
     """(out (B, H, T, D) fp32, lse (B, H, T) fp32) of masked attention.
 
     q (B, H, T, D); k, v (B, Kh, T, D) with Kh in (1, H); mask (B, T) bool
     or uint8, or None for all keys valid. ``dropout_rate`` in [0, 1) drops
     attention weights with the position hash keyed by ``seed`` (an int in
     [0, 2^32)). Differentiable in q, k and v.
+
+    ``data_rank``: the caller's rank on a mesh's "data" axis. With dropout
+    the kernel's seed is (seed + data_rank * 0x6A09E667) mod 2^32, so the
+    data ranks draw different masks (JAX ``_SHARD_SEED_MIX``,
+    turkish_asr_tpu/ops/flash_attention.py:96-98).
     """
     rate = float(dropout_rate)
     _check_dropout(rate, seed)
+    if rate > 0.0:
+        seed = shard_seed(seed, data_rank, bits=32)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, mask, rate, int(seed))
     out, lse, _, _ = _fwd(q, k, v, mask, rate, int(seed))  # inference, and torch.export

@@ -104,9 +104,11 @@ class ServerConfig:
     ``.ckpt``'s ``model_config`` holds it). USE_BEAM_SEARCH=true serves the
     beam of width BEAM_WIDTH, LM-fused with the ARPA at ASR_LM_PATH
     through ASR_LM_FUSION (auto/device/hash/host, the CLI's --lm_fusion),
-    ASR_LM_WEIGHT and ASR_WORD_BONUS. The model path defaults to the port
-    trainer's ``best_model.pt`` (the JAX server's default names its own
-    trainer's ``best_model.ckpt``)."""
+    ASR_LM_WEIGHT and ASR_WORD_BONUS. ASR_DATA_PARALLEL (default true)
+    splits batched forwards over a replica of the model on every visible
+    CUDA device, as the JAX server shards them over its chips. The model
+    path defaults to the port trainer's ``best_model.pt`` (the JAX server's
+    default names its own trainer's ``best_model.ckpt``)."""
 
     def __init__(self):
         self.MODEL_PATH = os.environ.get("ASR_MODEL_PATH", "./runs/best_model.pt")
@@ -131,6 +133,7 @@ class ServerConfig:
         self.PORT = int(os.environ.get("ASR_PORT", "8000"))
         self.BATCH_WINDOW_MS = float(os.environ.get("ASR_BATCH_WINDOW_MS", "0"))
         self.MAX_BATCH = int(os.environ.get("ASR_MAX_BATCH", "16"))
+        self.DATA_PARALLEL = os.environ.get("ASR_DATA_PARALLEL", "true").strip().lower() == "true"
 
 
 class ASRService:
@@ -142,7 +145,9 @@ class ASRService:
     failed warmup raises.
     """
 
-    def __init__(self, config=None, warmup=True, device="cuda"):
+    def __init__(self, config=None, warmup=True, device="cuda", devices=None):
+        """``devices``: the data-parallel replicas' devices (``ASRInference``'s;
+        default every visible CUDA device)."""
         self.config = config or ServerConfig()
         self.device = resolve_device(device)
         self.asr = None
@@ -158,7 +163,7 @@ class ASRService:
                 use_beam_search=cfg.USE_BEAM_SEARCH, beam_width=cfg.BEAM_WIDTH,
                 lm_path=cfg.LM_PATH, lm_fusion=cfg.LM_FUSION, lm_weight=cfg.LM_WEIGHT,
                 word_bonus=cfg.WORD_BONUS, tokenizer_path=cfg.TOKENIZER_PATH,
-                device=self.device)
+                device=self.device, data_parallel=cfg.DATA_PARALLEL, devices=devices)
         except Exception as e:  # noqa: BLE001 — serve anyway, 503 (reference)
             print(f"Failed to load model: {e}")
             return

@@ -6,7 +6,11 @@ reference trainer, trainer/trainer.py:84-145): one ``torch.save`` dict with
 and the server read), ``config`` (the run's flags), ``model_config``,
 ``epoch``, ``global_step``, ``best_val_loss``, ``optimizer_state_dict`` and
 ``scheduler_state_dict``. Files are ``checkpoint_epoch_{E}.pt`` and
-``best_model.pt``, written by atomic rename.
+``best_model.pt``, written by atomic rename. A checkpoint holds the full
+(unsharded) model and optimizer state whatever the mesh it was written on:
+``shard_optimizer_state``/``gather_optimizer_state`` map the Adam moments
+(and MultiSteps' accumulator) by their parameters' layout, as
+``parallel/mesh.py`` maps the weights.
 
 It also reads and writes the JAX package's ``.ckpt``
 (turkish_asr_tpu/train/checkpoint.py:41-57): flax ``msgpack_serialize``
@@ -23,6 +27,7 @@ import os
 
 import torch
 
+from turkish_asr_torch.parallel.mesh import gather_tensor, param_layout, shard_tensor
 from turkish_asr_torch.utils import msgpack_read
 
 
@@ -75,3 +80,31 @@ def latest_checkpoint(checkpoint_dir, patterns=("checkpoint_epoch_*.pt",
                          for p in glob.glob(os.path.join(checkpoint_dir, pattern))),
                         key=os.path.getmtime)
     return candidates[-1] if candidates else None
+
+
+def _map_moments(state, fn):
+    """An optimizer state dict with ``fn`` applied to each list of
+    per-parameter tensors: Adam's mu and nu, and MultiSteps' acc."""
+    if "inner" in state:
+        return {**state, "inner": _map_moments(state["inner"], fn), "acc": fn(state["acc"])}
+    return {**state, "mu": fn(state["mu"]), "nu": fn(state["nu"])}
+
+
+def shard_optimizer_state(state, names, mesh):
+    """This rank's optimizer state of a full one; ``names`` are the
+    trainable parameters' names, in the optimizer's order."""
+    if mesh is None:
+        return state
+    index, size = mesh.index("model"), mesh.size("model")
+    return _map_moments(state, lambda ts: [shard_tensor(t, param_layout(n), index, size)
+                                           for t, n in zip(ts, names)])
+
+
+def gather_optimizer_state(state, names, mesh):
+    """The full optimizer state of this rank's: a collective call of every
+    rank."""
+    if mesh is None:
+        return state
+    group = mesh.group("model")
+    return _map_moments(state, lambda ts: [gather_tensor(t, param_layout(n), group)
+                                           for t, n in zip(ts, names)])

@@ -16,12 +16,19 @@ rules are written out here with optax's formulas and fp32 arithmetic:
   (acc + (g - acc) / (n + 1)), one inner update (and one schedule step)
   per k, and a flush that feeds zero micro-gradients to the window's end.
 
-Updates are in place under ``torch.no_grad``.
+Updates are in place under ``torch.no_grad``. On a mesh whose "model" axis
+shards parameters, the global norm is that of the full gradient
+(``ClippedAdamW.sq_norm``), so every rank clips by the same factor.
 """
 
 import math
 
 import torch
+
+
+def sq_norm_of(grads):
+    """The squared global norm of ``grads`` (fp32)."""
+    return sum(torch.sum(g.float() ** 2) for g in grads)
 
 
 def torch_onecycle_schedule(peak_value, total_steps, pct_start=0.1, div_factor=25.0,
@@ -47,11 +54,14 @@ def torch_onecycle_schedule(peak_value, total_steps, pct_start=0.1, div_factor=2
 
 
 class ClippedAdamW:
-    """clip_by_global_norm(clip) -> adamw(schedule, b1, b2, eps, weight_decay)."""
+    """clip_by_global_norm(clip) -> adamw(schedule, b1, b2, eps, weight_decay).
+    ``sq_norm``: gradients -> their squared global norm (the trainer sets
+    a mesh's, ``parallel/mesh.grad_sq_norm``)."""
 
     def __init__(self, params, schedule, weight_decay, gradient_clip=1.0, b1=0.9, b2=0.999,
                  eps=1e-8):
         self.params = list(params)
+        self.sq_norm = sq_norm_of
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.gradient_clip = gradient_clip
@@ -63,7 +73,7 @@ class ClippedAdamW:
     @torch.no_grad()
     def update(self, grads):
         """One update of every parameter from ``grads`` (one per param)."""
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        norm = torch.sqrt(self.sq_norm(grads))
         clip = self.gradient_clip
         grads = [torch.where(norm < clip, g, (g / norm) * clip) for g in grads]
         count_inc = self.count + 1
@@ -133,6 +143,10 @@ class MultiSteps:
     @property
     def step_count(self):
         return self.inner.count
+
+    @property
+    def sq_norm(self):
+        return self.inner.sq_norm
 
     def state_dict(self):
         return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,

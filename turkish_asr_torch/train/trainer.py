@@ -1,4 +1,4 @@
-"""CTC trainer on one device.
+"""CTC trainer on one device, or on one rank of a mesh of processes.
 
 Counterpart of turkish_asr_tpu/train/trainer.py (:42-629). One train step
 runs on the device from the padded waveform batch: log-mel, SpecAugment
@@ -31,6 +31,27 @@ traces the first ``PROFILE_BATCHES`` batches of the start epoch
 Dropout and SpecAugment draw from seeds derived from (--seed, epoch,
 batch), not from a generator that advances, so a step is a pure function
 of its inputs and a resumed run continues bit for bit.
+
+On a mesh (``mesh``, with the model sharded by ``parallel/mesh.shard_model``)
+each data rank holds its slice of the global batch and the step equals the
+one-process step on the global batch:
+
+- every data rank pads its waveforms to the longest rank's length, as the
+  one-process batch is padded;
+- the loss is the local ``sum(per_sample * mask)`` over the global
+  ``sum(mask)`` (all-reduced over "data"): a mean of local means would be
+  wrong whenever ranks hold different numbers of valid samples;
+- the gradients are summed over the (data, seq) ranks in flat buckets
+  after ``torch.autograd.grad`` (DistributedDataParallel's hooks fire on
+  ``.grad`` accumulation, which ``autograd.grad`` bypasses);
+- the NaN/Inf skip reads the all-reduced loss and the global gradient
+  norm (``parallel/mesh.grad_sq_norm``, which the clip reads too), so
+  every rank takes the same decision;
+- validation's loss is global; WER/CER are averaged over the data ranks,
+  as the JAX trainer does (:576-587);
+- a checkpoint holds the full state, gathered over "model", written by
+  rank 0 and followed by a barrier; every rank reads it and takes its
+  shard, so a run resumes on another mesh.
 """
 
 import math
@@ -39,33 +60,51 @@ import time
 
 import torch
 
+import torch.distributed as dist
+import torch.nn.functional as F
+
 from turkish_asr_torch.audio.augment import spec_augment_batch
 from turkish_asr_torch.audio.features import log_mel_spectrogram
 from turkish_asr_torch.decode.greedy import greedy_collapse_batch
-from turkish_asr_torch.models.conformer import derive_seed
+from turkish_asr_torch.models.conformer import ConformerCTC, derive_seed
 from turkish_asr_torch.ops.ctc import ctc_loss
+from turkish_asr_torch.parallel.collectives import all_reduce_
+from turkish_asr_torch.parallel.mesh import (
+    axis_group, gather_state_dict, grad_sq_norm, shard_seed, shard_state_dict)
 from turkish_asr_torch.train.checkpoint import (
-    latest_checkpoint, load_checkpoint_file, load_jax_checkpoint_file, save_checkpoint_file)
-from turkish_asr_torch.train.optim import MultiSteps
+    gather_optimizer_state, latest_checkpoint, load_checkpoint_file, load_jax_checkpoint_file,
+    save_checkpoint_file, shard_optimizer_state)
+from turkish_asr_torch.train.optim import MultiSteps, make_optimizer
 from turkish_asr_torch.utils.metrics import ASRMetrics
 from turkish_asr_torch.utils.runtime import start_profiler_trace, stop_profiler_trace
 from turkish_asr_torch.utils.weights import (
-    default_model_state, restore_optimizer_from_named, state_dict_from_jax)
+    default_model_state, restore_optimizer_from_named, state_dict_from_jax, trainable_names)
 
 SEED_AUGMENT, SEED_DROPOUT = 0, 1
 PROFILE_BATCHES = 20  # the JAX trainer's traced window
 
 
 class Trainer:
-    """Turkish ASR trainer on one device."""
+    """Turkish ASR trainer on one device, or on one rank of ``mesh``."""
 
     def __init__(self, model, optimizer, schedule, config, logger, tokenizer=None,
                  train_loader=None, valid_loader=None, device="cuda", accumulation_steps=1,
-                 compute_dtype=torch.bfloat16, augment=False):
+                 compute_dtype=torch.bfloat16, augment=False, mesh=None):
+        if model.mesh is not mesh:
+            raise ValueError("the model is not sharded for this mesh "
+                             "(parallel.mesh.shard_model(model, mesh) first)")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = model.cfg
         self.params = [p for p in self.model.parameters() if p.requires_grad]
+        self.names = trainable_names(self.model)
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
+        self.data = axis_group(mesh, "data")
+        self.grad_group = axis_group(mesh, "data", "seq")
+        if mesh is not None:  # the clip's norm, and the skip's, of the full gradient
+            adam = optimizer.inner if isinstance(optimizer, MultiSteps) else optimizer
+            adam.sq_norm = grad_sq_norm(self.names, mesh)
         self.optimizer = optimizer
         self.schedule = schedule
         self.config = config
@@ -95,8 +134,17 @@ class Trainer:
     # steps
     # ------------------------------------------------------------------
     def _to_device(self, batch):
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        out = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+               for k, v in batch.items()}
+        if self.data is not None:  # the global batch's padded length
+            S = out["waveforms"].shape[1]
+            longest = all_reduce_([torch.tensor([S], device=self.device)], self.data, "max")[0]
+            out["waveforms"] = F.pad(out["waveforms"], (0, int(longest) - S))
+        return out
+
+    def _data_sum(self, t):
+        """``t`` summed over the data ranks (a new tensor, no autograd)."""
+        return all_reduce_([t.detach().clone()], self.data)[0]
 
     def _loss(self, batch, train, seed=None):
         """(loss, new BatchNorm state or None, logits, frame_lengths)."""
@@ -105,7 +153,8 @@ class Trainer:
         if train:
             if self.augment:
                 gen = torch.Generator(device=self.device)
-                gen.manual_seed(derive_seed(seed, SEED_AUGMENT))
+                gen.manual_seed(shard_seed(derive_seed(seed, SEED_AUGMENT),
+                                           0 if self.mesh is None else self.mesh.index("data")))
                 feats = spec_augment_batch(
                     feats, gen, frame_lengths,
                     freq_mask_param=getattr(self.config, "spec_augment_freq", 27),
@@ -120,7 +169,9 @@ class Trainer:
                               batch["target_lengths"], reduction="none")
         per_sample = per_sample / batch["target_lengths"].clamp(min=1)
         mask = batch["sample_mask"]
-        loss = (per_sample * mask).sum() / mask.sum().clamp(min=1.0)
+        # This data rank's share of the global batch's mean: summed over
+        # the data ranks it is the loss, and its gradients sum likewise.
+        loss = (per_sample * mask).sum() / self._data_sum(mask.sum()).clamp(min=1.0)
         return loss, bn_state, logits, frame_lengths
 
     def train_step(self, batch, seed):
@@ -129,7 +180,9 @@ class Trainer:
         loss, bn_state, _, _ = self._loss(self._to_device(batch), True, seed)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        grad_norm_sq = sum(torch.sum(g.float() ** 2) for g in grads)
+        all_reduce_(grads, self.grad_group)
+        loss = self._data_sum(loss)
+        grad_norm_sq = self.optimizer.sq_norm(grads)
         bad = ~torch.isfinite(loss) | ~torch.isfinite(grad_norm_sq)
         if not bool(bad):
             self.optimizer.update(grads)
@@ -149,11 +202,18 @@ class Trainer:
     # checkpoints
     # ------------------------------------------------------------------
     def save_checkpoint(self, epoch, name=None):
+        """Every rank calls it; rank 0 writes the full state."""
         self.sync_global_step()
+        model_state = gather_state_dict(self.model.state_dict(), self.mesh)
+        optimizer_state = gather_optimizer_state(self.optimizer.state_dict(), self.names,
+                                                 self.mesh)
+        if self.rank != 0:
+            self._barrier()
+            return
         ckpt_dir = self.config.checkpoint_dir
         os.makedirs(ckpt_dir, exist_ok=True)
         payload = {
-            "model_state_dict": self.model.state_dict(),
+            "model_state_dict": model_state,
             "config": {k: v for k, v in vars(self.config).items()
                        if isinstance(v, (int, float, str, bool, type(None)))},
             "model_config": {"n_mels": self.cfg.n_mels, "d_model": self.cfg.d_model,
@@ -163,12 +223,29 @@ class Trainer:
             "epoch": int(epoch),
             "global_step": int(self.global_step),
             "best_val_loss": float(self.best_val_loss),
-            "optimizer_state_dict": self.optimizer.state_dict(),
+            "optimizer_state_dict": optimizer_state,
             "scheduler_state_dict": {"step": int(self.global_step)},
         }
         path = os.path.join(ckpt_dir, name or f"checkpoint_epoch_{epoch}.pt")
         save_checkpoint_file(path, payload)
         self.logger.info(f"Checkpoint saved: {path}")
+        self._barrier()
+
+    def _barrier(self):
+        if self.mesh is not None and self.mesh.distributed:
+            dist.barrier()
+
+    def _optimizer_state_from_named(self, state_dict, named):
+        """The full optimizer state of a JAX checkpoint's ``opt_named``,
+        restored into an optimizer of this trainer's kind over an
+        unsharded CPU copy of the model."""
+        full = ConformerCTC(self.cfg)
+        full.load_state_dict(state_dict, strict=True)
+        k = self.optimizer.k if isinstance(self.optimizer, MultiSteps) else 1
+        optimizer, _ = make_optimizer([p for p in full.parameters() if p.requires_grad],
+                                      1.0, 0.0, 10, accumulation_steps=k)
+        restore_optimizer_from_named(optimizer, full, named)
+        return optimizer.state_dict()
 
     def load_checkpoint(self):
         if not getattr(self.config, "resume", False):
@@ -193,13 +270,15 @@ class Trainer:
             sd = state_dict_from_jax(ckpt["params"],
                                      ckpt["model_state"] or default_model_state(ckpt["params"]),
                                      self.cfg.n_heads)
-            self.model.load_state_dict(sd, strict=True)
-            if ckpt["opt_named"] is not None:
-                restore_optimizer_from_named(self.optimizer, self.model, ckpt["opt_named"])
+            optimizer_state = (None if ckpt["opt_named"] is None
+                               else self._optimizer_state_from_named(sd, ckpt["opt_named"]))
         else:
-            self.model.load_state_dict(ckpt["model_state_dict"], strict=True)
-            if "optimizer_state_dict" in ckpt:
-                self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+            sd, optimizer_state = ckpt["model_state_dict"], ckpt.get("optimizer_state_dict")
+        # Every rank reads the full state and takes its shard.
+        self.model.load_state_dict(shard_state_dict(sd, self.mesh), strict=True)
+        if optimizer_state is not None:
+            self.optimizer.load_state_dict(
+                shard_optimizer_state(optimizer_state, self.names, self.mesh))
         self.start_epoch = int(meta.get("epoch", 0)) + 1
         self.global_step = int(meta.get("global_step", 0))
         if jax_ckpt and ckpt["opt_named"] is None:
@@ -259,7 +338,7 @@ class Trainer:
                 continue
             n_valid = int(batch["sample_mask"].sum())
             loss, _, logits, frame_lengths = self._loss(self._to_device(batch), False)
-            val_loss += loss.item()
+            val_loss += self._data_sum(loss).item()
             if self.metrics:
                 ids, counts = greedy_collapse_batch(logits, frame_lengths // 4,
                                                     blank_id=self.blank)
@@ -274,6 +353,12 @@ class Trainer:
         if num_batches == 0:
             self.logger.warning("Validation produced no batches; skipping.")
             return None
+        if self.data is not None:
+            # WER/CER of this rank's rows, averaged over the data ranks (JAX
+            # :576-587): every rank then takes the same best epoch.
+            rates = self._data_sum(torch.tensor([total_wer, total_cer], dtype=torch.float64,
+                                                device=self.device)) / self.data.size
+            total_wer, total_cer = (float(r) for r in rates)
         avg_val_loss = val_loss / num_batches
         self.logger.info(f"Epoch {epoch} Validation | Loss: {avg_val_loss:.4f} | "
                          f"WER: {total_wer / num_batches:.2%} | CER: {total_cer / num_batches:.2%}")
@@ -294,6 +379,8 @@ class Trainer:
         self.logger.info(f"Gradient Clipping: {self.config.gradient_clip}")
         self.logger.info(f"Accumulation Steps: {self.accumulation_steps}")
         self.logger.info(f"Device: {self.device}")
+        self.logger.info(f"Mesh: {self.mesh.shape if self.mesh else {'data': 1}} "
+                         f"(rank {self.rank})")
         self.logger.info("=" * 60)
         for epoch in range(self.start_epoch, self.config.epochs + 1):
             self.train_epoch(epoch)

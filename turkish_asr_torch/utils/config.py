@@ -10,20 +10,20 @@ reference or JAX invocation runs unchanged, with three differences:
 - ``--output_model_path`` defaults to a ``.pt`` file: the port writes the
   reference's ``.pt`` checkpoints (and resumes from a JAX ``.ckpt`` too).
 - the flags that only mean something on a TPU or in the JAX package
-  (``--rng_impl``, ``--ctc_impl``, ``--use_pallas``) and the
-  multi-device flags not ported yet (``--mesh_shape``, ``--distributed``;
-  ROADMAP A6) are accepted at their defaults and refused otherwise.
+  (``--rng_impl``, ``--ctc_impl``, ``--use_pallas``) are accepted at their
+  defaults and refused otherwise.
 
 ``--remat_policy full|dots`` and ``--profile_dir`` run as in the JAX
-package (``models/conformer.py``, ``utils/runtime.py``).
+package (``models/conformer.py``, ``utils/runtime.py``). ``--mesh_shape``
+(e.g. ``data=4,model=2``) lays the ranks of a ``torchrun`` job out as the
+JAX package lays out devices (``parallel/mesh.py``); ``--distributed``
+joins a process group even at world size 1.
 """
 
 import argparse
 
 # flag -> (default, why another value is refused)
 _REFUSED = {
-    "mesh_shape": (None, "not ported: the port trains on one device (ROADMAP A6)"),
-    "distributed": (False, "not ported: multi-process training is queued (ROADMAP A6)"),
     "rng_impl": ("rbg", "not applicable: the port's dropout masks come from "
                         "torch.Generator seeds and the kernels' position hash"),
     "ctc_impl": ("auto", "not applicable: CTC runs the CUDA kernels on the card and "
@@ -94,8 +94,12 @@ def get_config(argv=None):
     parser.add_argument("--remat_policy", type=str, default="full", choices=["full", "dots"],
                         help="Per-block recomputation policy: 'full' recomputes the block; "
                              "'dots' saves the linear layers' products and recomputes the rest")
-    parser.add_argument("--mesh_shape", type=str, default=None, help="JAX device mesh (not ported)")
-    parser.add_argument("--distributed", action="store_true", help="Multi-host JAX (not ported)")
+    parser.add_argument("--mesh_shape", type=str, default=None,
+                        help="Process mesh, e.g. 'data=4,model=2' (axes data, model, seq; "
+                             "one size may be -1). Default: every rank on 'data'")
+    parser.add_argument("--distributed", action="store_true",
+                        help="Join a torch.distributed process group (torchrun's env) even at "
+                             "world size 1")
     parser.add_argument("--rng_impl", type=str, default="rbg", choices=["rbg", "threefry2x32"],
                         help="JAX PRNG implementation (not applicable)")
     parser.add_argument("--ctc_impl", type=str, default="auto", choices=["auto", "scan", "pallas"],
