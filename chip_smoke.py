@@ -8,7 +8,9 @@ Phases; any failure raises and the script exits non-zero.
 2. Attention kernels: the flash-attention forward (with dropout 0 and 0.1)
    and backward against their plain PyTorch versions on the card, first at
    the main path's two shapes (training: B=32, T'=200, dropout 0.1; the
-   long served bucket: B=16, T'=601; both bf16, H=4, Kh=1, D=64), then
+   long served bucket: B=16, T'=601; both bf16, H=4, Kh=1, D=64) and bench
+   config 5's two (LONGFORM_ATTENTION: Conformer-L's H=8, Kh=1, D=64 at
+   T'=1601, B=16 and B=4 with dropout 0.1), then
    B=4, H=4, D=64, T' in {26, 201, 601, 801}, Kh in {1, 4}; ragged lengths
    with a length-0 row, bf16 and fp32 inputs. Tolerances: forward out 1e-4
    (fp32 inputs) and 2e-2 (bf16: both round p to bf16, row sums in another
@@ -151,18 +153,37 @@ Phases; any failure raises and the script exits non-zero.
    measure correctness and overhead, not scaling.
 14. Memorization: ``turkish_asr_torch/scripts/overfit.py`` on the card in
    bf16: loss under 0.1 after 300 steps, the five words decoded back.
+15. Bench (``turkish_asr_torch/bench.py``): bench config 5's forward
+   (Conformer-L: d_model 512, 8 heads, 16 blocks; B=16 x 64 s, T'=1601,
+   seeded random weights) with the attention kernel against the same
+   model with the plain core (``attn_kernel=False``) by the serving
+   phase's bars (fp32 within 1e-3 at 0.99 frame-argmax agreement; bf16
+   within bf16's own noise, its argmaxes agreeing at 0.99 or, where bf16
+   itself moves more than that, as often as the plain bf16 and fp32
+   argmaxes agree, and never below AGREE_BF16_FLOOR, 0.95). Then ``bench.run`` on the card:
+   every configuration at its full shapes and widths, BENCH_CAP timed
+   iterations or steps each (the host beam: BENCH_CAP utterances and
+   trials). It fails on an ``error_`` line, unless the headline is last,
+   unless every line has bench.py's fields (``bench.FIELDS``) plus the
+   card's name and its power limit (not null), and unless each configuration launched
+   its kernels (BENCH_KERNELS: the attention forward everywhere, the
+   backward and both CTC kernels in the training ones), counted with the
+   counts set to 0 before each configuration and read after it.
 
-Each phase prints its seconds. The last five lines are a JSON line of
-phases 9-12's and 14's numbers, the parallel phase's JSON line, then the
+Each phase prints its seconds. The last six lines are a JSON line of
+phases 9-12's and 14's numbers, the parallel phase's JSON line, the bench
+phase's (its lines, launches and the long-form check), then the
 card, the kernels (launch counts from the training run, errors, chained
 and single-call times, bound_ms and bound_by from kernel_bounds,
 library_ms: the one torch call that computes the same function, or null
 where none does; kernel_ms for the CTC kernels; device kernels a call for
 the CTC, dump and SwiGLU kernels; the MHA shape's times under "mha"; each
-rank's launches in the parallel phase's data=2 steps) and {"ok": true,
-"device": {...}}.
+rank's launches in the parallel phase's data=2 steps; each bench
+configuration's launches; the attention kernels' times at bench config
+5's shapes under "longform") and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import logging
 import math
@@ -209,6 +230,21 @@ BEAM_WIDTH = 16
 BEAM_BATCHES = (16, 128)  # a served batch, and bench.py's BATCH
 BEAM_SECONDS = 8
 BEAM_REPS = 3
+# bench config 5's attention shapes (turkish_asr_torch/bench.py): Conformer-L
+# (8 heads MQA, D=64) at 64 s, T'=1601 (a tail tile that is no multiple of
+# the kernels' tiles): the long-form forward's B=16, and the training
+# step's B=4 with dropout 0.1 (the backward's dk/dv chunk plan at B=4).
+LONGFORM_ATTENTION = {"longform_serve": dict(B=16, H=8, Kh=1, T=1601, D=64, rate=0.0),
+                      "longform_train": dict(B=4, H=8, Kh=1, T=1601, D=64, rate=0.1)}
+AGREE_BF16_FLOOR = 0.95  # the long-form bf16 argmax bar never goes below this
+BENCH_CAP = 2  # timed iterations and steps of each bench configuration (bench.run's cap)
+_FWD = ("flash_attention_fwd",)
+_TRAIN = ("flash_attention_fwd", "flash_attention_bwd", "ctc_fwd", "ctc_bwd")
+# The kernels each configuration of turkish_asr_torch.bench.run must launch.
+BENCH_KERNELS = {"bench_greedy_headline": _FWD, "bench_greedy_single": _FWD,
+                 "bench_train_small": _TRAIN, "bench_train_aug": _TRAIN,
+                 "bench_beam_arpa": _FWD, "bench_beam_arpa_100k": _FWD,
+                 "bench_longform_conformer_l": _FWD, "bench_train_conformer_l": _TRAIN}
 WORDS = ("merhaba", "evet", "hayır", "bir", "iki", "üç", "dört", "beş", "altı", "yedi",
          "sekiz", "dokuz", "on", "güneş", "deniz", "kitap")
 
@@ -372,9 +408,10 @@ def attention_phase():
             (a - b).abs().max().item() for a, b in zip(grads, ref_grads)))
         return err_o, err_l, err_g
 
-    # The main path's two shapes: errors, then chained and single-call times
-    # of the kernels, their plain versions and torch's fused attention.
-    for where, shp in MAIN_PATH.items():
+    # The main path's two shapes and bench config 5's two: errors, then
+    # chained and single-call times of the kernels, their plain versions and
+    # torch's fused attention.
+    for where, shp in {**MAIN_PATH, **LONGFORM_ATTENTION}.items():
         Bm, Hm, Km, T, Dm, rate = (shp[k] for k in ("B", "H", "Kh", "T", "D", "rate"))
         q, k, v, g, mask = attention_inputs(Bm, Hm, Km, T, Dm, torch.bfloat16)
         seed = 77
@@ -400,7 +437,9 @@ def attention_phase():
                               library_ms=library[0], library_chained_ms=library[1],
                               **kernel_bounds(kname, B=Bm, H=Hm, Kh=Km, T=T, D=Dm))
         times[where] = row
-        print(f"attention main path ({where}) bf16 B={Bm} H={Hm} Kh={Km} T'={T} D={Dm} "
+        del q, k, v, g, mask, out, lse, m, l, delta, grads, ref_out, ref_lse, ref_grads
+        torch.cuda.empty_cache()
+        print(f"attention path ({where}) bf16 B={Bm} H={Hm} Kh={Km} T'={T} D={Dm} "
               f"rate={rate}: max|out-ref|={err_o:.3e} max|lse-ref|={err_l:.3e} grads rel "
               f"{err_g:.3e}", flush=True)
         for kname, r in row.items():
@@ -1923,6 +1962,103 @@ def parallel_phase(workdir, pt):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the port's bench (turkish_asr_torch/bench.py).
+
+
+def _longform_check(bench):
+    """Config 5's forward (Conformer-L, B=16 x 64 s, T'=1601, seeded random
+    weights) with the attention kernel against the same model with the
+    plain core (``attn_kernel=False``), by the serving phase's bars: fp32
+    logits within 1e-3 at 0.99 frame-argmax agreement; bf16 logits within
+    bf16's own noise of the plain path's (max|plain bf16 - plain fp32|),
+    their frame argmaxes agreeing at 0.99, or, where bf16 itself moves more
+    of the plain path's argmaxes than that (16 blocks of random weights put
+    them at the noise floor), as often as the plain bf16 and fp32 argmaxes
+    agree."""
+    cfg = bench._flagship_cfg(**bench.CONFORMER_L)
+    model = bench._model(cfg, "cuda")
+    B, seconds = bench.LONGFORM
+    w, n = bench._waves(B, seconds, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for kernel in (True, False):
+                out[dtype, kernel] = bench._logits(cfg, model, w, n, dtype, kernel)[0].float()
+    torch.cuda.synchronize()
+    kernel16, plain16 = out[torch.bfloat16, True], out[torch.bfloat16, False]
+    kernel32, plain32 = out[torch.float32, True], out[torch.float32, False]
+    frames = 1 + int(seconds * SR) // 160  # mel frames; two stride-2 convs, padding 1
+    T = ((frames - 1) // 2) // 2 + 1
+    if kernel16.shape != (B, T, cfg.n_classes) or not all(
+            torch.isfinite(x).all() for x in out.values()):
+        raise AssertionError(f"long-form logits: shape {tuple(kernel16.shape)}, expected "
+                             f"{(B, T, cfg.n_classes)}, or not finite")
+    numbers = {"B": B, "T": T,
+               "diff_bf16": (kernel16 - plain16).abs().max().item(),
+               "bf16_noise": (plain16 - plain32).abs().max().item(),
+               "agree_bf16": (kernel16.argmax(-1) == plain16.argmax(-1)).float().mean().item(),
+               "agree_noise": (plain16.argmax(-1) == plain32.argmax(-1)).float().mean().item(),
+               "diff_fp32": (kernel32 - plain32).abs().max().item(),
+               "agree_fp32": (kernel32.argmax(-1) == plain32.argmax(-1)).float().mean().item()}
+    print(f"long-form Conformer-L B={B} x {seconds:g} s (T'={T}), kernel vs plain core: bf16 "
+          f"max|diff| {numbers['diff_bf16']:.4e} (bf16 noise {numbers['bf16_noise']:.4e}), "
+          f"argmax agreement {numbers['agree_bf16']:.4f} (plain bf16 vs fp32 "
+          f"{numbers['agree_noise']:.4f}); fp32 max|diff| "
+          f"{numbers['diff_fp32']:.4e}, agreement {numbers['agree_fp32']:.4f}", flush=True)
+    if (numbers["diff_bf16"] > numbers["bf16_noise"]
+            or numbers["agree_bf16"] < max(AGREE_BF16_FLOOR, min(0.99, numbers["agree_noise"]))
+            or numbers["diff_fp32"] > 1e-3 or numbers["agree_fp32"] < 0.99):
+        raise AssertionError(f"the long-form forward disagrees with its plain core: {numbers}")
+    return numbers
+
+
+def bench_phase():
+    """Config 5's forward against its plain core, then every configuration
+    of ``turkish_asr_torch.bench.run`` at full shapes and widths with
+    BENCH_CAP iterations: no error line, the headline last, bench.py's
+    fields on every line, and each configuration's kernel launches
+    (BENCH_KERNELS; the counts set to 0 before it and read after it)."""
+    from turkish_asr_torch import bench
+    numbers = {"longform": _longform_check(bench)}
+    torch.cuda.empty_cache()
+    launches = {}
+
+    @contextlib.contextmanager
+    def counted(name):
+        _reset_counts()
+        try:
+            yield
+        finally:
+            launches[name] = _counts()
+
+    lines = bench.run("cuda", BENCH_CAP, counted)
+    errors = [d for d in lines if d["metric"].startswith("error_")]
+    if errors:
+        raise AssertionError(f"bench configurations failed: {errors}")
+    metrics = [d["metric"] for d in lines]
+    if metrics[-1] != "rtfx_greedy_batch" or sorted(metrics) != sorted(bench.FIELDS):
+        raise AssertionError(f"bench lines {metrics}: every configuration once, the headline "
+                             f"last")
+    name = torch.cuda.get_device_name(0)
+    for d in lines:
+        want = {"metric", "value", "unit", "device", "power_limit_w", *bench.FIELDS[d["metric"]]}
+        if (set(d) != want or d["device"] != name or d["power_limit_w"] is None
+                or not (d["value"] > 0)):
+            raise AssertionError(f"bench line {d}: fields {sorted(set(d) ^ want)} differ from "
+                                 f"bench.py's, or device/power limit/value wrong")
+    missing = {cfg: [k for k in kernels if launches[cfg][k] == 0]
+               for cfg, kernels in BENCH_KERNELS.items()}
+    missing = {k: v for k, v in missing.items() if v}
+    print("bench launches: " + "; ".join(
+        f"{cfg} " + ", ".join(f"{k} {launches[cfg][k]}" for k in kernels)
+        for cfg, kernels in BENCH_KERNELS.items()), flush=True)
+    if missing:
+        raise AssertionError(f"bench configurations launched no {missing}")
+    numbers.update(lines=lines, launches=launches)
+    return numbers
+
+
 def _phase(name, fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -1969,6 +2105,7 @@ def main():
                    "export": _phase("export", export_phase, workdir, ckpt)}
         parallel = _phase("parallel", parallel_phase, workdir, pt)
         numbers["memorization"] = _phase("memorization", memorize_phase)
+    bench = _phase("bench", bench_phase)
     print(f"all phases: {time.perf_counter() - start:.3f} s", flush=True)
 
     replaces = {
@@ -2008,6 +2145,11 @@ def main():
             entry["on_main_path"] = False  # a test helper, as the TPU's dump_keep_mask
         if name in ("flash_attention_fwd", "flash_attention_bwd"):
             entry["mha"] = {k: times["mha"][name][k] for k in keys}
+            entry["longform"] = {w: {k: times[w][name][k] for k in keys}
+                                 for w in LONGFORM_ATTENTION}
+        if name in ("flash_attention_fwd", "flash_attention_bwd", "ctc_fwd", "ctc_bwd"):
+            # each bench configuration's launches (BENCH_CAP iterations)
+            entry["bench_launches"] = {cfg: n[name] for cfg, n in bench["launches"].items()}
         if name == "flash_attention_fwd":
             entry["export_launches"] = numbers["export"]["export_launches"]
             entry["serving_launches"] = serving_launches
@@ -2030,6 +2172,7 @@ def main():
     print(json.dumps({"beam": beam}))
     print(json.dumps(numbers))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"bench": bench}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -648,3 +648,35 @@ def test_data_parallel_ranks_launch_the_kernels_on_one_card(cuda, tmp_path):
         assert all(n > 0 for n in r["launches"].values()), r["launches"]
     for k, v in ranks[1]["local_state"].items():
         assert torch.equal(v, ranks[0]["local_state"][k]), k
+
+
+@pytest.mark.cuda
+def test_attention_kernel_is_the_default_and_kernel_off_launches_none(cuda):
+    """The model's default core launches the attention kernels (forward in
+    eval; forward and backward in a training step); ``attn_kernel=False``
+    (the bench's kernel-off runs) launches neither, and its fp32 logits are
+    the kernel's within chip_smoke.py's served fp32 bar (1e-3)."""
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(n_mels=80, d_model=64, n_heads=4, n_blocks=2, n_classes=56, dropout=0.1)
+    model = init_model(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 203, 80))
+                         .astype(np.float32)).to(cuda)
+    lens = torch.tensor([203, 150], device=cuda)
+    logits = {}
+    for kernel in (True, False):
+        before = (flash_attention.launches, flash_attention.launches_bwd)
+        with torch.no_grad():
+            logits[kernel] = model(x, lens, torch.float32, attn_kernel=kernel)
+        out, _ = model(x, lens, torch.bfloat16, train=True, seed=3, remat="full",
+                       attn_kernel=kernel)
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        fwd = flash_attention.launches - before[0]
+        bwd = flash_attention.launches_bwd - before[1]
+        if kernel:
+            assert (fwd, bwd) == (3 * cfg.n_blocks, cfg.n_blocks)
+        else:
+            assert (fwd, bwd) == (0, 0)
+    assert (logits[True] - logits[False]).abs().max().item() < 1e-3

@@ -61,6 +61,8 @@ SLICE_MODULES = [
     "turkish_asr_torch.parallel",
     "turkish_asr_torch.parallel.mesh",
     "turkish_asr_torch.parallel.collectives",
+    "turkish_asr_torch.bench",
+    "turkish_asr_torch.spm_train",
 ]
 
 

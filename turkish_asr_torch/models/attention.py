@@ -7,7 +7,10 @@ module: projections add their bias in fp32 and then cast to the compute
 dtype; the RoPE tables are cast to the activation dtype; the attention
 core is ``ops.flash_attention`` (the Hopper kernels on CUDA tensors, their
 plain versions on CPU tensors; differentiable, with attention-weight
-dropout inside the kernel in training), which returns fp32 context.
+dropout inside the kernel in training), which returns fp32 context. With
+``attn_kernel=False`` (the bench's kernel-off runs, JAX's
+``attn_kernel=None``) the core is ``ops.flash_attention_plain`` instead,
+the plain version on any device; nothing picks it by itself.
 
 On a mesh (``parallel/mesh.py``) ``linear_q`` holds this "model" rank's
 heads and ``linear_out`` their input columns (row-parallel, one all-reduce
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from turkish_asr_torch.ops.flash_attention import flash_attention
+from turkish_asr_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from turkish_asr_torch.parallel.collectives import all_gather, copy_to, reduce_from
 from turkish_asr_torch.parallel.mesh import axis_group, seq_bounds
 
@@ -144,12 +147,13 @@ class MultiQueryAttention(nn.Module):
         self.linear_out = nn.Linear(d_model, d_model)
 
     def forward(self, x, mask=None, compute_dtype=torch.float32, dropout=0.0, seed=0,
-                span=None):
+                span=None, attn_kernel=True):
         """x (B, T, D) normalized input; mask (B, T) bool. -> (B, T, D).
 
         ``dropout`` > 0 drops attention weights inside the attention kernel
         with the position hash keyed by ``seed`` (training). Over "seq" x
-        holds frames t0:t1 of ``span`` (t0, t1, T) and ``mask`` all T."""
+        holds frames t0:t1 of ``span`` (t0, t1, T) and ``mask`` all T.
+        ``attn_kernel=False`` runs the core through its plain version."""
         model, seq = axis_group(self.mesh, "model"), axis_group(self.mesh, "seq")
         B, Tl, D = x.shape
         H, Kh, Dh = self.n_heads, self.kv_heads, self.d_head
@@ -170,7 +174,8 @@ class MultiQueryAttention(nn.Module):
         v = v.transpose(1, 2).contiguous()
         # On a mesh the kernel's seed takes the data rank (``flash_attention``).
         shard = {} if self.mesh is None else {"data_rank": self.mesh.index("data")}
-        context, _ = flash_attention(q, k, v, mask, dropout, seed, **shard)
+        core = flash_attention if attn_kernel else flash_attention_plain
+        context, _ = core(q, k, v, mask, dropout, seed, **shard)
         context = context.transpose(1, 2)  # (B, T, H, Dh)
         if model is not None or seq is not None:  # this rank's frames and heads
             t0, t1 = (0, T) if seq is None else span[:2]

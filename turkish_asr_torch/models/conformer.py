@@ -288,10 +288,11 @@ class ConformerBlock(nn.Module):
         self.masked_norm = cfg.masked_norm
         self.dropout = cfg.dropout
 
-    def forward(self, x, mask, compute_dtype, train=False, seed=None):
+    def forward(self, x, mask, compute_dtype, train=False, seed=None, attn_kernel=True):
         """-> output, or (output, new BatchNorm running mean, var) with
         ``train``; ``seed`` (the block's) keys its dropout masks. Over
-        "seq" x holds this rank's frames and ``mask`` all T' frames."""
+        "seq" x holds this rank's frames and ``mask`` all T' frames.
+        ``attn_kernel=False``: the attention core's plain version."""
         seq = axis_group(self.mesh, "seq")
         T = x.shape[1] if seq is None else mask.shape[1]
         t0, t1 = (0, T) if seq is None else seq_bounds(T, seq.size)[seq.index]
@@ -307,7 +308,8 @@ class ConformerBlock(nn.Module):
         x = x + 0.5 * self.ff1(self.norm_ff1(x, nm), compute_dtype, rate,
                                (site(SITE_FF1_GATE), site(SITE_FF1_OUT)), span)
         attn_seed = derive_seed(seed, SITE_ATTN) & 0xFFFFFFFF if rate > 0.0 else 0
-        x = x + self.attn(self.norm_attn(x, nm), mask, compute_dtype, rate, attn_seed, span)
+        x = x + self.attn(self.norm_attn(x, nm), mask, compute_dtype, rate, attn_seed, span,
+                          attn_kernel)
         conv = self.conv(x, compute_dtype, nm, train, span)
         if train:
             conv, stats = conv
@@ -354,7 +356,7 @@ class ConformerCTC(nn.Module):
         self.fc = nn.Linear(d, cfg.n_classes)
 
     def forward(self, x, input_lengths=None, compute_dtype=torch.float32, *, train=False,
-                seed=None, remat=False):
+                seed=None, remat=False, attn_kernel=True):
         """x (B, T, n_mels) features; input_lengths (B,) frame counts before
         subsampling. -> logits (B, T', n_classes) fp32.
 
@@ -365,7 +367,12 @@ class ConformerCTC(nn.Module):
         given. ``remat`` recomputes each block in the backward
         (``torch.utils.checkpoint``, JAX's per-block ``jax.checkpoint``):
         ``"full"`` (or True) the whole block, ``"dots"`` all but the linear
-        layers' products (``dots_saveable``)."""
+        layers' products (``dots_saveable``).
+
+        ``attn_kernel=False`` runs every block's attention core through its
+        plain version (``ops.flash_attention_plain``, JAX's
+        ``attn_kernel=None``): the bench's kernel-off runs pass it; the
+        default is the kernel."""
         cd = compute_dtype
         h = x[:, None].to(cd)  # (B, 1, T, F)
         for conv in (self.subsample[0], self.subsample[2]):
@@ -386,7 +393,7 @@ class ConformerCTC(nn.Module):
         h = dense(self.input_proj, h, cd)
         if not train:
             for block in self.blocks:
-                h = block(h, mask, cd)
+                h = block(h, mask, cd, attn_kernel=attn_kernel)
             return self._logits(h, cd, Th)
         if remat not in (False, None, True, "full", "dots"):
             raise ValueError(f"remat must be False, 'full' or 'dots', got {remat!r}")
@@ -396,9 +403,10 @@ class ConformerCTC(nn.Module):
             block_seed = None if seed is None else derive_seed(seed, i)
             if remat:
                 h, mean, var = torch.utils.checkpoint.checkpoint(
-                    block, h, mask, cd, True, block_seed, use_reentrant=False, **context)
+                    block, h, mask, cd, True, block_seed, attn_kernel, use_reentrant=False,
+                    **context)
             else:
-                h, mean, var = block(h, mask, cd, True, block_seed)
+                h, mean, var = block(h, mask, cd, True, block_seed, attn_kernel)
             bn_state.append((mean, var))
         return self._logits(h, cd, Th), bn_state
 

@@ -315,6 +315,21 @@ flash_attention.launches = 0
 flash_attention.launches_bwd = 0
 
 
+def flash_attention_plain(q, k, v, mask=None, dropout_rate=0.0, seed=0, data_rank=0):
+    """``flash_attention``'s function through its plain version
+    (``_flash_attention.flash_attention_fwd_stats_ref``) on any device,
+    differentiated by autograd: the kernel-off core of the model
+    (``attn_kernel=False``), the counterpart of the JAX package's einsum
+    core (``attn_kernel=None``). It launches no kernel and counts nothing;
+    the scores are materialized, (B, H*T, T) fp32 for MQA."""
+    rate = float(dropout_rate)
+    _check_dropout(rate, seed)
+    if rate > 0.0:
+        seed = shard_seed(seed, data_rank, bits=32)
+    out, lse, _, _ = flash_attention_fwd_stats_ref(q, k, v, mask, rate, int(seed))
+    return out, lse.detach()
+
+
 def dump_keep_mask(B, H, T, seed, rate, device):
     """(B, H, T, T) bool: the keep mask the kernels apply for ``seed`` and
     ``rate`` (query rows against keys, per query head). The dump kernel on

@@ -89,7 +89,7 @@ class Trainer:
 
     def __init__(self, model, optimizer, schedule, config, logger, tokenizer=None,
                  train_loader=None, valid_loader=None, device="cuda", accumulation_steps=1,
-                 compute_dtype=torch.bfloat16, augment=False, mesh=None):
+                 compute_dtype=torch.bfloat16, augment=False, mesh=None, attn_kernel=True):
         if model.mesh is not mesh:
             raise ValueError("the model is not sharded for this mesh "
                              "(parallel.mesh.shard_model(model, mesh) first)")
@@ -115,6 +115,9 @@ class Trainer:
         self.accumulation_steps = accumulation_steps
         self.compute_dtype = compute_dtype
         self.augment = augment
+        # False: the attention core's plain version (the bench's kernel-off
+        # runs, JAX's attn_kernel=None); nothing else passes it.
+        self.attn_kernel = attn_kernel
         self.remat = (False if getattr(config, "no_remat", False)
                       else getattr(config, "remat_policy", "full"))
         self.metrics = ASRMetrics(tokenizer) if tokenizer else None
@@ -161,9 +164,10 @@ class Trainer:
                     time_mask_param=getattr(self.config, "spec_augment_time", 100))
             logits, bn_state = self.model(feats, frame_lengths, self.compute_dtype, train=True,
                                           seed=derive_seed(seed, SEED_DROPOUT),
-                                          remat=self.remat)
+                                          remat=self.remat, attn_kernel=self.attn_kernel)
         else:
-            logits, bn_state = self.model(feats, frame_lengths, self.compute_dtype), None
+            logits, bn_state = self.model(feats, frame_lengths, self.compute_dtype,
+                                          attn_kernel=self.attn_kernel), None
         log_probs = torch.log_softmax(logits.float(), dim=-1)
         per_sample = ctc_loss(log_probs, batch["targets"], frame_lengths // 4,
                               batch["target_lengths"], reduction="none")
