@@ -1,4 +1,5 @@
-"""Smoke run of turkish_asr_torch on one CUDA card: `python3 chip_smoke.py`.
+"""Smoke run of turkish_asr_torch on one CUDA card: `python3 chip_smoke.py`
+(`python3 chip_smoke.py --multichip` on four cards: see the end).
 
 Phases; any failure raises and the script exits non-zero.
 
@@ -149,8 +150,14 @@ Phases; any failure raises and the script exits non-zero.
    parallelism: ASRInference on the visible cards and on two replicas on
    cuda:0 gives the one-replica texts (fp32). Wall ms a step and the
    all-reduce calls and bytes a step for each mesh, and the launches, go
-   into a {"parallel": ...} JSON line. Two ranks time-sliced on one card
-   measure correctness and overhead, not scaling.
+   into a {"parallel": ...} JSON line. Four gloo ranks on cuda:0 run
+   model=2,seq=2 the same way (3 fp32 steps against one process: losses
+   1e-4, weights 1e-4, the gathered initial state equal to the init, the
+   kernels launched on every rank); and over the one-rank NCCL group,
+   turkish_asr_torch.multichip.dryrun_multichip(1) (one bf16 step with
+   --augment and accumulation 2, then W=4 trie and hash beam decodes that
+   must agree), which must launch the attention and CTC kernels. Ranks
+   time-sliced on one card measure correctness and overhead, not scaling.
 14. Memorization: ``turkish_asr_torch/scripts/overfit.py`` on the card in
    bf16: loss under 0.1 after 300 steps, the five words decoded back.
 15. Bench (``turkish_asr_torch/bench.py``): bench config 5's forward
@@ -170,6 +177,30 @@ Phases; any failure raises and the script exits non-zero.
    backward and both CTC kernels in the training ones), counted with the
    counts set to 0 before each configuration and read after it.
 
+``python3 chip_smoke.py --multichip`` (four cards, ``chiprun --chips 4``;
+raises with fewer visible cards) runs the parallel layer over NCCL, one
+rank a card, at flagship width (the parallel phase's init and batches),
+after the build:
+(a) ranks started by ``turkish_asr_torch.multichip.launch`` hold
+data=4, data=2,model=2, model=2,seq=2 and seq=2,data=2 (3 fp32 steps,
+dropout 0) to the one-process trainer on cuda:0 as the parallel phase
+does, every rank on its own card; (b) data=4 in bf16 with dropout 0.1 and
+--augment: finite losses, the four replicas' weights bit-equal, four
+different keep masks; (c) ``python -m turkish_asr_torch.main`` on the
+synthetic corpus under torchrun on data=2,model=2 for 2 epochs (rank 0
+writes the .pt checkpoints), its epoch-2 checkpoint written as a JAX
+.ckpt, then ``--resume`` on data=4 through the launcher continues from
+the .ckpt for epoch 3, and ASRInference serves the final .pt with a
+replica on each card: the texts equal one replica's, greedy and W=16
+trie beam, and their fp32 logits within 1e-3; (d) ``python -m
+turkish_asr_torch.multichip 4`` (the
+dryrun, mesh data=2,model=2). Printed: wall ms a step per mesh (median of
+the steps after the first) beside the one-process step, all-reduce calls
+and bytes a step, and a served B=128 x 8 s bf16 batched forward with one
+and with four replicas, in a {"multichip": ...} JSON line with the
+cards' names and power limits and the NCCL version; then the cards' lines
+and {"ok": true, "device": {..., "count": 4}}.
+
 Each phase prints its seconds. The last six lines are a JSON line of
 phases 9-12's and 14's numbers, the parallel phase's JSON line, the bench
 phase's (its lines, launches and the long-form check), then the
@@ -188,6 +219,7 @@ import json
 import logging
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1714,6 +1746,7 @@ def memorize_phase():
 # Phase 14: the parallel layer on one card.
 
 PARALLEL_MESHES = ("data=2", "model=2", "seq=2")
+PARALLEL_MESHES_4 = ("model=2,seq=2",)  # four gloo ranks on cuda:0
 PARALLEL_STEPS = 3
 PARALLEL_B = 32
 PARALLEL_FP32 = ["--precision", "fp32", "--encoder_dropout", "0"]
@@ -1737,8 +1770,9 @@ def _parallel_run(argv, mesh, batches, cfg, init, profile=False):
     """PARALLEL_STEPS trainer steps on this rank's rows of ``batches`` (all
     rows without a mesh): the losses, wall ms a step, the kernel launches,
     the all-reduce traffic a step, the full weights and Adam's second
-    moments after the steps; with ``profile`` the device kernels of the
-    last step by name (torch.profiler)."""
+    moments after the steps, whether the gathered initial state equals
+    ``init``, and the rank's device; with ``profile`` the device kernels of
+    the last step by name (torch.profiler)."""
     import dataclasses
     from turkish_asr_torch.models.conformer import ConformerCTC
     from turkish_asr_torch.parallel.collectives import traffic
@@ -1749,6 +1783,8 @@ def _parallel_run(argv, mesh, batches, cfg, init, profile=False):
     model = ConformerCTC(dataclasses.replace(cfg, dropout=dropout))
     model.load_state_dict(init)
     tr = _flagship_trainer(argv, model=model, mesh=mesh)
+    init_equal = all(torch.equal(v.cpu(), init[k]) for k, v in
+                     gather_state_dict(tr.model.state_dict(), mesh).items())
     d, n = (0, 1) if mesh is None else (mesh.index("data"), mesh.size("data"))
     losses, ms, kernels = [], [], {}
     _reset_counts()
@@ -1774,7 +1810,8 @@ def _parallel_run(argv, mesh, batches, cfg, init, profile=False):
                                     if any(k in e.key for k in names))
     out = {"losses": losses, "ms": ms, "launches": _counts(),
            "traffic": {k: v / len(batches) for k, v in traffic.snapshot().items()},
-           "profiled_kernels": kernels}
+           "profiled_kernels": kernels, "init_equal": init_equal,
+           "device": str(next(tr.model.parameters()).device)}
     out["state"] = {k: v.cpu() for k, v in gather_state_dict(tr.model.state_dict(), mesh).items()}
     out["local_state"] = {k: v.cpu() for k, v in tr.model.state_dict().items()}
     out["nu"] = dict(zip(tr.names, (v.cpu() for v in gather_optimizer_state(
@@ -1782,43 +1819,56 @@ def _parallel_run(argv, mesh, batches, cfg, init, profile=False):
     return out
 
 
-def _parallel_rank(rank, world, tmp):
-    """One of the two ranks on cuda:0 (``python3 chip_smoke.py
-    --parallel-rank RANK WORLD DIR``): the fp32 meshes, then data=2 in
-    bf16 with dropout and --augment."""
+def _ranks_run(tmp, specs, bf16_spec=None, profile=False):
+    """This rank's part, once its process group exists: PARALLEL_STEPS fp32
+    steps at dropout 0 on each mesh of ``specs``, then ``bf16_spec`` in
+    bf16 with dropout 0.1 and --augment (with the first attention call's
+    keep mask under this rank's kernel seed); saved as ``rank<R>.pt``."""
     import torch.distributed as dist
     from turkish_asr_torch.models import attention
     from turkish_asr_torch.ops.flash_attention import dump_keep_mask
     from turkish_asr_torch.parallel.mesh import make_mesh, shard_seed
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
-                            rank=rank, world_size=world)
+    world = dist.get_world_size()
     cfg, init = torch.load(os.path.join(tmp, "init.pt"), weights_only=False)
     batches = torch.load(os.path.join(tmp, "batches.pt"), weights_only=False)
     out = {}
-    for spec in PARALLEL_MESHES:
+    for spec in specs:
         out[spec] = _parallel_run(PARALLEL_FP32, make_mesh(spec, world), batches, cfg, init,
-                                  profile=True)
+                                  profile=profile)
         torch.cuda.empty_cache()
-    seeds = []
-    real = attention.flash_attention
+    if bf16_spec is not None:
+        seeds = []
+        real = attention.flash_attention
 
-    def recording(q, k, v, mask, rate, seed, data_rank=0):
-        seeds.append((q.shape, rate, seed, data_rank))
-        return real(q, k, v, mask, rate, seed, data_rank=data_rank)
+        def recording(q, k, v, mask, rate, seed, data_rank=0):
+            seeds.append((q.shape, rate, seed, data_rank))
+            return real(q, k, v, mask, rate, seed, data_rank=data_rank)
 
-    mesh = make_mesh("data=2", world)
-    with mock.patch.object(attention, "flash_attention", recording):
-        bf16 = _parallel_run(["--augment"], mesh, batches, cfg, init)
-    (B, H, T, _), rate, seed, data_rank = seeds[0]  # the first block's call in the first step
-    bf16["keep_mask"] = dump_keep_mask(B, H, T, shard_seed(seed, data_rank, bits=32), rate,
-                                       "cuda").cpu()
-    bf16["kernel_seed"] = shard_seed(seed, data_rank, bits=32)
-    out["bf16"] = bf16
-    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
-    dist.destroy_process_group()
+        with mock.patch.object(attention, "flash_attention", recording):
+            bf16 = _parallel_run(["--augment"], make_mesh(bf16_spec, world), batches, cfg, init)
+        (B, H, T, _), rate, seed, data_rank = seeds[0]  # the first block's call, first step
+        kernel_seed = shard_seed(seed, data_rank, bits=32)
+        bf16["keep_mask"] = dump_keep_mask(B, H, T, kernel_seed, rate, "cuda").cpu()
+        bf16["kernel_seed"] = kernel_seed
+        out["bf16"] = bf16
+    torch.save(out, os.path.join(tmp, f"rank{dist.get_rank()}.pt"))
+
+
+def _parallel_rank(rank, world, tmp, specs):
+    """One of the gloo ranks on cuda:0 (``python3 chip_smoke.py
+    --parallel-rank RANK WORLD DIR SPEC...``): the fp32 meshes ``specs``,
+    then at two ranks data=2 in bf16 with dropout and --augment."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, f"store{world}"),
+                                                         world),
+                            rank=rank, world_size=world)
+    try:
+        _ranks_run(tmp, specs, "data=2" if world == 2 else None, profile=world == 2)
+    finally:
+        dist.destroy_process_group()
 
 
 def _noise_elements(nu, count):
@@ -1840,27 +1890,25 @@ def _weights_err(got, want, noise, lr=1e-3):
     return main, rest, marked
 
 
-def parallel_phase(workdir, pt):
-    """The parallel layer on the card: two gloo ranks on cuda:0 against the
-    one-process trainer on the same global batch (data=2, model=2, seq=2 in
-    fp32 with dropout 0; then data=2 in bf16 with dropout and --augment),
-    a one-rank NCCL group, and served data parallelism."""
-    import socket
-    import torch.distributed as dist
-    from turkish_asr_torch.inference import ASRInference
-    from turkish_asr_torch.audio.wavio import write_wav
-    from turkish_asr_torch.parallel.mesh import init_distributed, make_mesh
-
-    tmp = os.path.join(workdir, "parallel")
+def _parallel_inputs(tmp):
+    """The seeded init and batches the ranks and the one-process run share,
+    saved into ``tmp``."""
     os.makedirs(tmp)
     cfg, init = _parallel_init()
     batches = _parallel_batches()
     torch.save((cfg, init), os.path.join(tmp, "init.pt"))
     torch.save(batches, os.path.join(tmp, "batches.pt"))
+    return cfg, init, batches
+
+
+def _gloo_ranks(tmp, world, specs):
+    """``world`` gloo ranks on cuda:0 (``--parallel-rank``) over ``specs``;
+    their results in rank order and the seconds they took. A rank that
+    fails or outlasts PARALLEL_TIMEOUT fails the phase."""
     start = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
-                               str(r), "2", tmp], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+                               str(r), str(world), tmp, *specs], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
         deadline = time.monotonic() + PARALLEL_TIMEOUT
@@ -1871,66 +1919,119 @@ def parallel_phase(workdir, pt):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    ranks_s = time.perf_counter() - start
+    seconds = time.perf_counter() - start
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
             raise AssertionError(f"parallel rank {r} exited {p.returncode}:\n{log[-4000:]}")
-    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)], seconds
+
+
+def _after_first(ms):
+    """The median wall ms of the steps after the first (CUDA warm-up)."""
+    return statistics.median(ms[1:])
+
+
+def _check_mesh(spec, runs, one, noise, label="parallel"):
+    """Hold every rank's run of mesh ``spec`` to the one-process run:
+    losses within 1e-4 relative, the gathered weights within 1e-4 (the
+    rounding-noise elements within 3 lr), the gathered initial state equal
+    to the init, and the attention and CTC kernels launched on every rank.
+    Prints the mesh's line; returns its numbers."""
+    loss_err = max(abs(a - b) / abs(b) for r in runs for a, b in zip(r["losses"],
+                                                                    one["losses"]))
+    main, rest, marked = _weights_err(runs[0]["state"], one["state"], noise)
+    launches = [{k: r["launches"][k] for k in _TRAIN} for r in runs]
+    numbers = {
+        "losses": runs[0]["losses"], "loss_rel_err": loss_err, "weights_err": main,
+        "noise_weights_err": rest, "noise_elements": marked,
+        "init_equal": [r["init_equal"] for r in runs], "devices": [r["device"] for r in runs],
+        "ms": [r["ms"] for r in runs], "median_ms": [_after_first(r["ms"]) for r in runs],
+        "allreduce": [r["traffic"] for r in runs], "launches": launches,
+        "profiled_kernels": [r["profiled_kernels"] for r in runs]}
+    print(f"{label} {spec}: losses {[round(x, 6) for x in runs[0]['losses']]} (one process "
+          f"{[round(x, 6) for x in one['losses']]}), max rel err {loss_err:.2e}; weights "
+          f"after {PARALLEL_STEPS} steps max|diff| {main:.2e} ({marked} rounding-noise "
+          f"elements: {rest:.2e}); initial state gathered equal {all(numbers['init_equal'])}; "
+          f"devices {numbers['devices']}; ms a step "
+          f"{[[round(x, 1) for x in r['ms']] for r in runs]}; all-reduce a step "
+          f"{runs[0]['traffic']}; launches {launches}; profiled kernels "
+          f"{numbers['profiled_kernels'][0]}", flush=True)
+    if loss_err > 1e-4 or main > 1e-4 or rest > 3e-3 or not all(numbers["init_equal"]):
+        raise AssertionError(f"{label} {spec} differs from the one-process run: {loss_err}, "
+                             f"{main}, {rest}, initial state equal {numbers['init_equal']}")
+    profiled = numbers["profiled_kernels"]
+    if not all(n > 0 for r in launches + profiled for n in r.values()):
+        raise AssertionError(f"{label} {spec}: a rank launched no kernel of the path: "
+                             f"wrappers {launches}, torch.profiler {profiled}")
+    return numbers
+
+
+def _check_bf16(ranks, label="parallel"):
+    """The bf16 run with dropout and --augment: finite losses, every data
+    replica's weights bit-equal to rank 0's, every rank's attention keep
+    mask (its own kernel seed) different from every other's."""
+    runs = [r["bf16"] for r in ranks]
+    b0 = runs[0]
+    equal = all(torch.equal(v, b["local_state"][k]) for b in runs[1:]
+                for k, v in b0["local_state"].items())
+    masks_differ = all(not torch.equal(a["keep_mask"], b["keep_mask"])
+                       for i, a in enumerate(runs) for b in runs[i + 1:])
+    numbers = {"losses": b0["losses"], "ms": [b["ms"] for b in runs],
+               "median_ms": [_after_first(b["ms"]) for b in runs],
+               "replicas_equal": equal, "keep_masks_differ": masks_differ,
+               "kernel_seeds": [b["kernel_seed"] for b in runs],
+               "launches": [b["launches"] for b in runs],
+               "allreduce": [b["traffic"] for b in runs], "devices": [b["device"] for b in runs]}
+    print(f"{label} bf16 dropout 0.1 --augment on {len(runs)} ranks: losses "
+          f"{[round(x, 4) for x in b0['losses']]}, replicas bit-equal {equal}, kernel seeds "
+          f"{numbers['kernel_seeds']}, keep masks differ {masks_differ}, ms a step "
+          f"{[[round(x, 1) for x in b['ms']] for b in runs]}", flush=True)
+    if not (all(math.isfinite(x) for x in b0["losses"]) and equal and masks_differ):
+        raise AssertionError(f"{label} bf16: {numbers}")
+    return numbers
+
+
+def parallel_phase(workdir, pt):
+    """The parallel layer on the card: gloo ranks on cuda:0 against the
+    one-process trainer on the same global batch (two ranks: data=2,
+    model=2, seq=2 in fp32 with dropout 0, then data=2 in bf16 with
+    dropout and --augment; four ranks: model=2,seq=2 in fp32), a one-rank
+    NCCL group (the trainer's steps, then dryrun_multichip(1)), and served
+    data parallelism."""
+    import torch.distributed as dist
+    from turkish_asr_torch import multichip
+    from turkish_asr_torch.inference import ASRInference
+    from turkish_asr_torch.audio.wavio import write_wav
+    from turkish_asr_torch.parallel.mesh import init_distributed, make_mesh
+
+    tmp = os.path.join(workdir, "parallel")
+    cfg, init, batches = _parallel_inputs(tmp)
+    ranks, ranks_s = _gloo_ranks(tmp, 2, PARALLEL_MESHES)
+    ranks4, ranks4_s = _gloo_ranks(tmp, 4, PARALLEL_MESHES_4)
 
     one = _parallel_run(PARALLEL_FP32, None, batches, cfg, init)
     noise = _noise_elements(one["nu"], PARALLEL_STEPS)
-    numbers = {"ranks_s": ranks_s, "one_process_ms": one["ms"], "meshes": {}}
+    numbers = {"ranks_s": ranks_s, "ranks4_s": ranks4_s, "one_process_ms": one["ms"],
+               "meshes": {}}
     for spec in PARALLEL_MESHES:
-        runs = [r[spec] for r in ranks]
-        loss_err = max(abs(a - b) / abs(b) for r in runs for a, b in zip(r["losses"],
-                                                                        one["losses"]))
-        main, rest, marked = _weights_err(runs[0]["state"], one["state"], noise)
-        launches = [{k: r["launches"][k] for k in ("flash_attention_fwd", "flash_attention_bwd",
-                                                   "ctc_fwd", "ctc_bwd")} for r in runs]
-        numbers["meshes"][spec] = {
-            "losses": runs[0]["losses"], "loss_rel_err": loss_err, "weights_err": main,
-            "noise_weights_err": rest, "noise_elements": marked,
-            "ms": [r["ms"] for r in runs], "allreduce": [r["traffic"] for r in runs],
-            "launches": launches, "profiled_kernels": [r["profiled_kernels"] for r in runs]}
-        print(f"parallel {spec}: losses {[round(x, 6) for x in runs[0]['losses']]} (one process "
-              f"{[round(x, 6) for x in one['losses']]}), max rel err {loss_err:.2e}; weights "
-              f"after {PARALLEL_STEPS} steps max|diff| {main:.2e} ({marked} rounding-noise "
-              f"elements: {rest:.2e}); ms a step {[[round(x, 1) for x in r['ms']] for r in runs]}"
-              f"; all-reduce a step {runs[0]['traffic']}; launches {launches}; profiled "
-              f"kernels {runs[0]['profiled_kernels']}", flush=True)
-        if loss_err > 1e-4 or main > 1e-4 or rest > 3e-3:
-            raise AssertionError(f"parallel {spec} differs from the one-process run: {loss_err}, "
-                                 f"{main}, {rest}")
-        profiled = [r["profiled_kernels"] for r in runs]
-        if not all(n > 0 for r in launches + profiled for n in r.values()):
-            raise AssertionError(f"parallel {spec}: a rank launched no kernel of the path: "
-                                 f"wrappers {launches}, torch.profiler {profiled}")
-    b0, b1 = (r["bf16"] for r in ranks)
-    equal = all(torch.equal(v, b1["local_state"][k]) for k, v in b0["local_state"].items())
-    masks_differ = not torch.equal(b0["keep_mask"], b1["keep_mask"])
-    numbers["bf16"] = {"losses": b0["losses"], "ms": [b0["ms"], b1["ms"]],
-                       "replicas_equal": equal, "keep_masks_differ": masks_differ,
-                       "kernel_seeds": [b0["kernel_seed"], b1["kernel_seed"]],
-                       "launches": [b0["launches"], b1["launches"]],
-                       "allreduce": [b0["traffic"], b1["traffic"]]}
-    print(f"parallel data=2 bf16 dropout 0.1 --augment: losses "
-          f"{[round(x, 4) for x in b0['losses']]}, replicas bit-equal {equal}, kernel seeds "
-          f"{numbers['bf16']['kernel_seeds']}, keep masks differ {masks_differ}, ms a step "
-          f"{[[round(x, 1) for x in b['ms']] for b in (b0, b1)]}", flush=True)
-    if not (all(math.isfinite(x) for x in b0["losses"]) and equal and masks_differ):
-        raise AssertionError(f"parallel data=2 bf16: {numbers['bf16']}")
+        numbers["meshes"][spec] = _check_mesh(spec, [r[spec] for r in ranks], one, noise)
+    for spec in PARALLEL_MESHES_4:
+        numbers["meshes"][spec] = _check_mesh(spec, [r[spec] for r in ranks4], one, noise,
+                                              "parallel (4 gloo ranks)")
+    numbers["bf16"] = _check_bf16(ranks)
 
     # One rank over NCCL: the trainer's step through init_distributed().
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
-           "MASTER_PORT": str(port)}
+           "MASTER_PORT": str(multichip.free_port())}
     with mock.patch.dict(os.environ, env):
         init_distributed("cuda", required=True)
     try:
         backend = dist.get_backend()
         nccl = _parallel_run(PARALLEL_FP32, make_mesh(None, 1), batches, cfg, init)
+        _reset_counts()
+        dryrun = multichip.dryrun_multichip(1, torch.device("cuda", 0))
+        dryrun_launches = _counts()
     finally:
         dist.destroy_process_group()
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(nccl["losses"], one["losses"]))
@@ -1943,6 +2044,12 @@ def parallel_phase(workdir, pt):
           f"a step {nccl['traffic']}, ms a step {[round(x, 1) for x in nccl['ms']]}", flush=True)
     if backend != "nccl" or loss_err > 1e-5 or main > 1e-4 or rest > 3e-3:
         raise AssertionError(f"one-rank NCCL run differs: {numbers['nccl']}")
+    numbers["dryrun"] = {"mesh": dryrun["mesh"], "loss": dryrun["loss"], "B": dryrun["B"],
+                         "launches": dryrun_launches}
+    print(f"dryrun_multichip(1) over {backend}: launches {dryrun_launches}", flush=True)
+    if not all(dryrun_launches[k] > 0 for k in _TRAIN):
+        raise AssertionError(f"dryrun_multichip(1) launched no kernel of the path: "
+                             f"{dryrun_launches}")
 
     # Served data parallelism: the rows of a batch split over two replicas.
     files = []
@@ -1960,6 +2067,313 @@ def parallel_phase(workdir, pt):
     if not texts["two"][0] == texts["visible"][0] == texts["one"][0] or texts["two"][1] != 2:
         raise AssertionError(f"served data parallelism: {texts}")
     return numbers
+
+
+# ---------------------------------------------------------------------------
+# --multichip: the parallel layer on four cards over NCCL.
+
+MULTICHIP_CARDS = 4
+MULTICHIP_MESHES = ("data=4", "data=2,model=2", "model=2,seq=2", "seq=2,data=2")
+MULTICHIP_BF16 = "data=4"
+MULTICHIP_TIMEOUT = 900  # seconds for a set of ranks; a hung collective fails the run
+MULTICHIP_CLI = ("data=2,model=2", "data=4")  # trained on the first, resumed on the second
+MULTICHIP_SERVED = dict(B=128, seconds=8, reps=5)  # the headline's served shape
+MULTICHIP_FILES = (1, 3, 5, 8, 2, 6, 4, 7)  # seconds of the served texts' files
+
+
+def _multichip_rank(tmp):
+    """One NCCL rank of the meshes phase (``python3 chip_smoke.py
+    --multichip-rank DIR`` under ``multichip.launch``): its own card,
+    ``cuda:LOCAL_RANK``."""
+    import torch.distributed as dist
+    from turkish_asr_torch.parallel.mesh import init_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cuda", required=True)
+    try:
+        _ranks_run(tmp, MULTICHIP_MESHES, MULTICHIP_BF16)
+    finally:
+        dist.destroy_process_group()
+
+
+def multichip_meshes(workdir):
+    """MULTICHIP_CARDS NCCL ranks, one a card, against the one-process
+    trainer on cuda:0 (the same init and batches): the fp32
+    MULTICHIP_MESHES held by ``_check_mesh``, then MULTICHIP_BF16 in bf16
+    with dropout and --augment by ``_check_bf16``; every rank on its own
+    card."""
+    from turkish_asr_torch import multichip
+    cards = MULTICHIP_CARDS
+    tmp = os.path.join(workdir, "meshes")
+    cfg, init, batches = _parallel_inputs(tmp)
+    start = time.perf_counter()
+    multichip.launch([sys.executable, os.path.abspath(__file__), "--multichip-rank", tmp], cards,
+                     "cuda", MULTICHIP_TIMEOUT)
+    ranks_s = time.perf_counter() - start
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(cards)]
+    one = _parallel_run(PARALLEL_FP32, None, batches, cfg, init)
+    noise = _noise_elements(one["nu"], PARALLEL_STEPS)
+    numbers = {"ranks_s": ranks_s, "one_process_ms": one["ms"],
+               "one_process_median_ms": _after_first(one["ms"]), "meshes": {}}
+    for spec in MULTICHIP_MESHES:
+        runs = [r[spec] for r in ranks]
+        numbers["meshes"][spec] = _check_mesh(spec, runs, one, noise, "multichip")
+        devices = [r["device"] for r in runs]
+        if devices != [f"cuda:{r}" for r in range(cards)]:
+            raise AssertionError(f"multichip {spec}: ranks on {devices}, not one card each")
+    numbers["bf16"] = _check_bf16(ranks, "multichip")
+    return numbers
+
+
+def _log_losses(path):
+    """The step losses a train.log records."""
+    with open(path, encoding="utf-8") as f:
+        return [float(x) for x in re.findall(r"\] Loss: (\S+) LR", f.read())]
+
+
+def _write_ckpt_of(pt, ckpt):
+    """The .pt checkpoint ``pt`` (weights, Adam state, epoch, step) written
+    as the JAX package's .ckpt by the port, as the ckpt phase writes one."""
+    from turkish_asr_torch.models.conformer import ConformerCTC, ModelConfig
+    from turkish_asr_torch.train.checkpoint import load_checkpoint_file, save_jax_checkpoint_file
+    from turkish_asr_torch.train.optim import make_optimizer
+    from turkish_asr_torch.utils.weights import jax_trees_from_state_dict, opt_named_from_optimizer
+    payload = load_checkpoint_file(pt)
+    model = ConformerCTC(ModelConfig(**payload["model_config"]))
+    model.load_state_dict(payload["model_state_dict"], strict=True)
+    optimizer, _ = make_optimizer([p for p in model.parameters() if p.requires_grad], 1.0, 0.0, 10)
+    optimizer.load_state_dict(payload["optimizer_state_dict"])
+    params, state = jax_trees_from_state_dict(payload["model_state_dict"])
+    meta = {k: payload[k] for k in ("epoch", "global_step", "best_val_loss", "config",
+                                    "model_config")}
+    save_jax_checkpoint_file(ckpt, meta, params, state, opt_named_from_optimizer(optimizer, model))
+
+
+def multichip_cli(workdir):
+    """``python -m turkish_asr_torch.main`` on MULTICHIP_CARDS NCCL ranks: 2
+    epochs on MULTICHIP_CLI[0] under torchrun (rank 0 writes the .pt
+    checkpoints), the last epoch's .pt written as a JAX .ckpt, then
+    ``--resume`` on MULTICHIP_CLI[1] through ``multichip.launch`` continues
+    from that .ckpt for a third epoch. Returns the numbers and the final
+    .pt."""
+    from turkish_asr_torch import multichip
+    cards, meshes = MULTICHIP_CARDS, MULTICHIP_CLI
+    corpus = os.path.join(workdir, "corpus_mc")
+    _write_corpus(corpus, 140)  # 105 train (3 global batches of 32), 35 valid (1)
+    run = os.path.join(workdir, "run_mc")
+    argv = ["-m", "turkish_asr_torch.main", "--data_path", corpus, "--val_split", "0.25",
+            "--test_split", "0.0", "--n_mel_channels", "80", "--d_model", "256", "--n_heads",
+            "4", "--n_blocks", "8", "--encoder_dropout", "0.1", "--augment", "--precision",
+            "bf16", "--batch_size", "32", "--learning_rate", "1e-3", "--save_interval", "1",
+            "--log_interval", "1", "--num_workers", "2", "--device", "cuda",
+            "--checkpoint_dir", run]
+    numbers = {}
+    log = os.path.join(workdir, "cli_mc.log")
+    start = time.perf_counter()
+    with open(log, "w") as out:
+        rc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", str(cards), *argv, "--epochs", "2",
+                             "--mesh_shape", meshes[0]], stdout=out, stderr=subprocess.STDOUT,
+                            timeout=MULTICHIP_TIMEOUT).returncode
+    numbers["train_s"] = time.perf_counter() - start
+    if rc != 0:
+        with open(log) as f:
+            raise AssertionError(f"torchrun main on {meshes[0]} exited {rc}:\n{f.read()[-6000:]}")
+    names = set(os.listdir(run))
+    want = {"checkpoint_epoch_1.pt", "checkpoint_epoch_2.pt", "best_model.pt",
+            "turkish_conformer_final.pt", "train.log"}
+    losses = _log_losses(os.path.join(run, "train.log"))
+    if not want <= names or not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"torchrun main on {meshes[0]}: files {sorted(names)}, losses "
+                             f"{losses}")
+    start = time.perf_counter()
+    _write_ckpt_of(os.path.join(run, "checkpoint_epoch_2.pt"),
+                   os.path.join(run, "checkpoint_epoch_2.ckpt"))
+    numbers["ckpt_write_s"] = time.perf_counter() - start
+    start = time.perf_counter()
+    with open(log, "a") as out:
+        multichip.launch([sys.executable, *argv, "--epochs", "3", "--mesh_shape", meshes[1],
+                          "--resume"], cards, "cuda", MULTICHIP_TIMEOUT, stdout=out)
+    numbers["resume_s"] = time.perf_counter() - start
+    with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
+        text = f.read()
+    resumed = _log_losses(os.path.join(run, "train.log"))[len(losses):]
+    if ("Resuming from: " + os.path.join(run, "checkpoint_epoch_2.ckpt") not in text
+            or "Resuming from Epoch 3" not in text
+            or f"Mesh: {multichip_mesh_dict(meshes[1])}" not in text
+            or "checkpoint_epoch_3.pt" not in os.listdir(run)
+            or not resumed or not all(math.isfinite(x) for x in resumed)):
+        raise AssertionError(f"--resume on {meshes[1]} from the .ckpt: losses {resumed}, files "
+                             f"{sorted(os.listdir(run))}")
+    numbers.update(losses=losses, resumed_losses=resumed, files=sorted(os.listdir(run)))
+    print(f"multichip CLI: {meshes[0]} under torchrun, 2 epochs in {numbers['train_s']:.3f} s, "
+          f"losses {[round(x, 4) for x in losses]}; epoch 2 as a .ckpt; --resume on {meshes[1]} "
+          f"from it, epoch 3 in {numbers['resume_s']:.3f} s, losses "
+          f"{[round(x, 4) for x in resumed]}", flush=True)
+    return numbers, os.path.join(run, "turkish_conformer_final.pt")
+
+
+def multichip_mesh_dict(spec):
+    """The shape of mesh ``spec`` as the trainer logs it, e.g. {'data': 4}."""
+    return {k: int(v) for k, v in (part.split("=") for part in spec.split(","))}
+
+
+def _all_cards_sync():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def multichip_served(workdir, pt):
+    """The trained model served by ASRInference with a replica on each of
+    the MULTICHIP_CARDS visible cards against one replica: the same texts, greedy
+    and W=16 trie beam with bench config 4's 400-word ARPA (fp32, as the
+    one-card phase holds served data parallelism), and the fp32 logits of
+    the files within 1e-3 (the serving phase's gate); then the wall ms of a
+    bf16 batched forward at MULTICHIP_SERVED's shape with 1 and with
+    MULTICHIP_CARDS replicas (median of ``reps`` after two warm-ups)."""
+    from turkish_asr_torch.audio.wavio import write_wav
+    from turkish_asr_torch.inference import ASRInference
+    from turkish_asr_torch.ops.flash_attention import flash_attention
+    from turkish_asr_torch.scripts.synthetic_arpa import synthetic_word_arpa
+    cards = MULTICHIP_CARDS
+    tmp = os.path.join(workdir, "served_mc")
+    os.makedirs(tmp)
+    files = []
+    for i, seconds in enumerate(MULTICHIP_FILES):
+        files.append(os.path.join(tmp, f"req{i}.wav"))
+        write_wav(files[-1], _tone(seconds, 500 + i), SR)
+    arpa = os.path.join(tmp, "words.arpa")
+    synthetic_word_arpa(arpa)
+    wav8 = np.zeros((len(files), max(MULTICHIP_FILES) * SR), np.float32)
+    lens8 = np.zeros(len(files), np.int32)
+    for i, seconds in enumerate(MULTICHIP_FILES):
+        x = _tone(seconds, 500 + i)
+        wav8[i, :x.size], lens8[i] = x, x.size
+    numbers = {}
+    texts, logits = {}, {}
+    for mode, kw in (("greedy", {}), ("beam", {"use_beam_search": True, "beam_width": BEAM_WIDTH,
+                                               "lm_path": arpa})):
+        for name, dp in (("one", False), ("all", True)):
+            asr = ASRInference(pt, compute_dtype=torch.float32, data_parallel=dp, **kw)
+            devices = [str(next(m.parameters()).device) for m in asr.replicas]
+            texts[mode, name] = asr.transcribe_files(files, batch_size=len(files))
+            numbers[f"{mode}_{name}_devices"] = devices
+            if mode == "greedy":
+                logits[name] = asr._forward_batch(wav8, lens8)[0].cpu()
+            del asr
+            torch.cuda.empty_cache()
+        if texts[mode, "one"] != texts[mode, "all"]:
+            raise AssertionError(f"served {mode}: {cards} replicas gave {texts[mode, 'all']}, "
+                                 f"one replica {texts[mode, 'one']}")
+    if numbers["greedy_all_devices"] != [f"cuda:{i}" for i in range(cards)]:
+        raise AssertionError(f"replicas on {numbers['greedy_all_devices']}")
+    numbers["texts"] = {mode: texts[mode, "one"] for mode in ("greedy", "beam")}
+    numbers["logits_max_abs_diff"] = (logits["all"] - logits["one"]).abs().max().item()
+    print(f"multichip served: {cards} replicas on {numbers['greedy_all_devices']} give one "
+          f"replica's texts, greedy {texts['greedy', 'one']} and W={BEAM_WIDTH} trie beam "
+          f"{texts['beam', 'one']}; fp32 logits of the {len(files)} files max|diff| "
+          f"{numbers['logits_max_abs_diff']:.3e}", flush=True)
+    if not numbers["logits_max_abs_diff"] <= 1e-3:  # the serving phase's fp32 gate
+        raise AssertionError(f"served logits: {cards} replicas differ from one by "
+                             f"{numbers['logits_max_abs_diff']}")
+
+    B, seconds, reps = (MULTICHIP_SERVED[k] for k in ("B", "seconds", "reps"))
+    wav = np.stack([_tone(seconds, 600 + i)[:seconds * SR] for i in range(B)])
+    lens = np.full(B, seconds * SR, np.int32)
+    numbers["forward"] = {"B": B, "seconds": seconds}
+    for name, dp in (("one", False), ("all", True)):
+        asr = ASRInference(pt, data_parallel=dp)  # bf16, as served
+        for _ in range(2):
+            asr._forward_batch(wav, lens)
+        _all_cards_sync()
+        ms = []
+        launches = flash_attention.launches
+        for _ in range(reps):
+            start = time.perf_counter()
+            logits, _ = asr._forward_batch(wav, lens)
+            _all_cards_sync()
+            ms.append((time.perf_counter() - start) * 1e3)
+        numbers["forward"][name] = {"replicas": len(asr.replicas), "ms": ms,
+                                    "median_ms": statistics.median(ms),
+                                    "attention_launches": (flash_attention.launches
+                                                           - launches) // reps}
+        if tuple(logits.shape[:1]) != (B,) or not torch.isfinite(logits).all():
+            raise AssertionError(f"served forward with {name} replicas: {logits.shape}")
+        del asr, logits
+        torch.cuda.empty_cache()
+    f = numbers["forward"]
+    print(f"multichip served forward B={B} x {seconds} s (bf16): 1 replica "
+          f"{f['one']['median_ms']:.3f} ms, {f['all']['replicas']} replicas "
+          f"{f['all']['median_ms']:.3f} ms (medians of {reps}; attention launches a forward "
+          f"{f['one']['attention_launches']} and {f['all']['attention_launches']})", flush=True)
+    return numbers
+
+
+def multichip_dryrun():
+    """``python -m turkish_asr_torch.multichip 4``: the module's own
+    launcher, NCCL, one rank a card; its two lines must say the JAX
+    dryrun's mesh, a finite loss and trie == hash with the kernel on."""
+    from turkish_asr_torch import multichip
+    cards = MULTICHIP_CARDS
+    start = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "turkish_asr_torch.multichip", str(cards),
+                          "--timeout", str(MULTICHIP_TIMEOUT)], capture_output=True, text=True,
+                         timeout=MULTICHIP_TIMEOUT + 60)
+    seconds = time.perf_counter() - start
+    lines = [x for x in out.stdout.splitlines() if x.startswith(f"dryrun_multichip({cards})")]
+    for line in lines:
+        print(line, flush=True)
+    mesh = str(multichip_mesh_dict(multichip.choose_mesh(cards)))
+    step = re.search(r"mesh=(\{.*\}) loss=(\S+)$", lines[0]) if lines else None
+    launches = re.search(r"flash kernel on, (\d+) launches", out.stdout)
+    if (out.returncode != 0 or not step or step.group(1) != mesh
+            or not math.isfinite(float(step.group(2))) or not launches
+            or int(launches.group(1)) == 0):
+        raise AssertionError(f"python -m turkish_asr_torch.multichip {cards} exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+    return {"mesh": mesh, "loss": float(step.group(2)), "seconds": seconds,
+            "attention_launches_rank0": int(launches.group(1))}
+
+
+def multichip_main():
+    """``python3 chip_smoke.py --multichip``: the parallel layer on
+    MULTICHIP_CARDS cards over NCCL; raises with fewer visible cards."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --multichip: torch.cuda.is_available() is False; this mode needs "
+              f"{MULTICHIP_CARDS} CUDA cards", file=sys.stderr)
+        return 1
+    import turkish_asr_torch  # noqa: F401 — fails outside a checkout of the repo
+    count = torch.cuda.device_count()
+    if count < MULTICHIP_CARDS:
+        raise RuntimeError(f"chip_smoke --multichip needs {MULTICHIP_CARDS} visible CUDA cards, "
+                           f"{count} visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    cards = smi.stdout.strip().splitlines()
+    for card in cards:
+        print(card, flush=True)
+    nccl = ".".join(str(x) for x in torch.cuda.nccl.version())
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"nccl {nccl}, {count} cards", flush=True)
+    start = time.perf_counter()
+    _phase("build", build_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        numbers = {"cards": cards, "nccl": nccl, "count": count,
+                   "meshes": _phase("multichip meshes", multichip_meshes, workdir)}
+        numbers["cli"], pt = _phase("multichip cli", multichip_cli, workdir)
+        numbers["served"] = _phase("multichip served", multichip_served, workdir, pt)
+        numbers["dryrun"] = _phase("multichip dryrun", multichip_dryrun)
+    print(f"all phases: {time.perf_counter() - start:.3f} s", flush=True)
+    print(json.dumps({"multichip": numbers}))
+    for card in cards:
+        print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": count}}))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -2067,8 +2481,13 @@ def _phase(name, fn, *args):
 
 
 def main():
+    if sys.argv[1:2] == ["--multichip"]:
+        return multichip_main()
+    if sys.argv[1:2] == ["--multichip-rank"]:
+        _multichip_rank(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--parallel-rank"]:
-        _parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        _parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5:])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",

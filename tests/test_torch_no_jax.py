@@ -63,6 +63,7 @@ SLICE_MODULES = [
     "turkish_asr_torch.parallel.collectives",
     "turkish_asr_torch.bench",
     "turkish_asr_torch.spm_train",
+    "turkish_asr_torch.multichip",
 ]
 
 

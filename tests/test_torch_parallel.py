@@ -98,9 +98,11 @@ def test_global_batch_must_split_over_the_data_ranks():
         check_batch(make_mesh("data=4", 4), 6)
 
 
-def test_sampler_process_slices_match_jax():
+@pytest.mark.parametrize("process_count", [2, 4, 8])
+def test_sampler_process_slices_match_jax(process_count):
     """The port's BucketingSampler hands each process the JAX sampler's
-    slice of every batch (tests/test_multihost.py::test_sampler_process_slicing)."""
+    slice of every batch (tests/test_multihost.py::test_sampler_process_slicing),
+    at 2, 4 and 8 processes."""
     from turkish_asr_tpu.data.dataset import BucketingSampler as JaxSampler
     from turkish_asr_torch.data.dataset import BucketingSampler
 
@@ -110,18 +112,22 @@ def test_sampler_process_slices_match_jax():
         def __len__(self):
             return 10
 
+    pc = process_count
+    batch = max(4, pc)  # 10 items: 2 full batches of 4, or 1 of 8
     for shuffle in (False, True):
-        for p in range(2):
-            got = list(BucketingSampler(FakeDS(), 4, shuffle=shuffle, seed=3,
-                                        process_index=p, process_count=2))
-            want = list(JaxSampler(FakeDS(), 4, shuffle=shuffle, seed=3,
-                                   process_index=p, process_count=2))
-            assert got == want and len(got) == 2 and all(len(b) == 2 for b in got)
-        b0, b1 = (list(BucketingSampler(FakeDS(), 4, shuffle=shuffle, seed=3,
-                                        process_index=p, process_count=2)) for p in range(2))
-        assert all(not set(x) & set(y) for x, y in zip(b0, b1))
+        slices = []
+        for p in range(pc):
+            got = list(BucketingSampler(FakeDS(), batch, shuffle=shuffle, seed=3,
+                                        process_index=p, process_count=pc))
+            want = list(JaxSampler(FakeDS(), batch, shuffle=shuffle, seed=3,
+                                   process_index=p, process_count=pc))
+            assert got == want and len(got) == 10 // batch
+            assert all(len(b) == batch // pc for b in got)
+            slices.append(got)
+        for step in zip(*slices):  # the processes' slices of a batch are disjoint
+            assert len(set().union(*step)) == batch
     with pytest.raises(ValueError):
-        BucketingSampler(FakeDS(), 5, process_index=0, process_count=2)
+        BucketingSampler(FakeDS(), 5, process_index=0, process_count=pc)
 
 
 def _np(tree):
@@ -179,9 +185,9 @@ def _noise(run, count):
     return jax_params_from_state_dict({k: v.float() for k, v in zip(run["names"], scale)})
 
 
-def _assert_params_close(got, want, got_state, want_state, noise):
-    """tests/test_torch_train.py's train-parity tolerance: 1e-5 absolute
-    (1% of the learning rate); the depthwise conv bias, whose gradient is
+def _assert_params_close(got, want, got_state, want_state, noise, atol=1e-5):
+    """tests/test_torch_train.py's train-parity tolerance: ``atol``, 1e-5
+    absolute (1% of the learning rate); the depthwise conv bias, whose gradient is
     rounding noise (BatchNorm removes a per-channel shift exactly), and the
     elements ``noise`` marks, within 3 lr; the BatchNorm running mean,
     which follows that bias, within the bias's difference."""
@@ -193,7 +199,7 @@ def _assert_params_close(got, want, got_state, want_state, noise):
     leaves = zip(jax.tree.leaves(got), jax.tree.leaves(want), jax.tree.leaves(noise))
     for a, b, n in leaves:
         n = n.astype(bool)
-        np.testing.assert_allclose(a[~n], b[~n], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(a[~n], b[~n], rtol=0, atol=atol)
         np.testing.assert_allclose(a[n], b[n], rtol=0, atol=3 * LR)
     got_bn, want_bn = got_state["blocks"]["bn"], want_state["blocks"]["bn"]
     np.testing.assert_allclose(got_bn["mean"], want_bn["mean"], rtol=0, atol=bias_diff + 1e-6)

@@ -8,8 +8,9 @@ bucket tables, ``collate_batch`` (with its dummy-row contract:
 ``PrefetchLoader``. The training feed carries padded waveforms; log-mel and
 SpecAugment run on the device inside the train step. ``ASRDataset.__getitem__``
 (the reference's feature item) uses the port's log-mel on the CPU. The
-multi-process slicing of the sampler stays, unused by the one-device
-trainer (ROADMAP A11).
+sampler's process slicing (``process_index``/``process_count``) gives each
+"data" rank of a mesh its interleaved slice of every global batch
+(``turkish_asr_torch/main.py``).
 """
 
 import glob

@@ -31,7 +31,8 @@ from turkish_asr_torch.data.buckets import DEFAULT_WAVEFORM_BUCKETS
 from turkish_asr_torch.data.dataset import BucketingSampler, PrefetchLoader, create_datasets
 from turkish_asr_torch.data.tokenizer import load_tokenizer
 from turkish_asr_torch.models.conformer import ModelConfig, init_model
-from turkish_asr_torch.parallel.mesh import check_batch, init_distributed, make_mesh, shard_model
+from turkish_asr_torch.parallel.mesh import (
+    barrier, check_batch, init_distributed, make_mesh, shard_model)
 from turkish_asr_torch.train.optim import make_optimizer
 from turkish_asr_torch.train.trainer import Trainer
 from turkish_asr_torch.utils.config import get_config
@@ -56,7 +57,7 @@ def build_kernels_once(device, mesh):
         for load in (flash_attention.load_kernel, flash_attention.load_bwd_kernel,
                      ctc.load_fwd_kernel, ctc.load_bwd_kernel):
             load()
-    dist.barrier()
+    barrier()
 
 
 def main(argv=None):

@@ -176,6 +176,15 @@ def init_distributed(device, required=False):
     return device
 
 
+def barrier():
+    """``dist.barrier`` of every rank, under NCCL on this rank's own card:
+    without ``device_ids`` NCCL guesses the card from the global rank."""
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
 def shard_seed(seed, data_rank, bits=63):
     """``seed`` mixed with the data rank, (seed + rank * 0x6A09E667) mod
     2^bits: each data rank draws its own dropout masks; rank 0 draws those

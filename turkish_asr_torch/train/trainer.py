@@ -59,8 +59,6 @@ import os
 import time
 
 import torch
-
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from turkish_asr_torch.audio.augment import spec_augment_batch
@@ -70,7 +68,7 @@ from turkish_asr_torch.models.conformer import ConformerCTC, derive_seed
 from turkish_asr_torch.ops.ctc import ctc_loss
 from turkish_asr_torch.parallel.collectives import all_reduce_
 from turkish_asr_torch.parallel.mesh import (
-    axis_group, gather_state_dict, grad_sq_norm, shard_seed, shard_state_dict)
+    axis_group, barrier, gather_state_dict, grad_sq_norm, shard_seed, shard_state_dict)
 from turkish_asr_torch.train.checkpoint import (
     gather_optimizer_state, latest_checkpoint, load_checkpoint_file, load_jax_checkpoint_file,
     save_checkpoint_file, shard_optimizer_state)
@@ -237,7 +235,7 @@ class Trainer:
 
     def _barrier(self):
         if self.mesh is not None and self.mesh.distributed:
-            dist.barrier()
+            barrier()
 
     def _optimizer_state_from_named(self, state_dict, named):
         """The full optimizer state of a JAX checkpoint's ``opt_named``,
