@@ -2075,7 +2075,7 @@ def parallel_phase(workdir, pt):
 MULTICHIP_CARDS = 4
 MULTICHIP_MESHES = ("data=4", "data=2,model=2", "model=2,seq=2", "seq=2,data=2")
 MULTICHIP_BF16 = "data=4"
-MULTICHIP_TIMEOUT = 900  # seconds for a set of ranks; a hung collective fails the run
+MULTICHIP_TIMEOUT = 300  # seconds for a set of ranks (~90 s); a hung collective fails the run
 MULTICHIP_CLI = ("data=2,model=2", "data=4")  # trained on the first, resumed on the second
 MULTICHIP_SERVED = dict(B=128, seconds=8, reps=5)  # the headline's served shape
 MULTICHIP_FILES = (1, 3, 5, 8, 2, 6, 4, 7)  # seconds of the served texts' files
@@ -2172,10 +2172,17 @@ def multichip_cli(workdir):
     log = os.path.join(workdir, "cli_mc.log")
     start = time.perf_counter()
     with open(log, "w") as out:
-        rc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                             "--nproc_per_node", str(cards), *argv, "--epochs", "2",
-                             "--mesh_shape", meshes[0]], stdout=out, stderr=subprocess.STDOUT,
-                            timeout=MULTICHIP_TIMEOUT).returncode
+        # A session of its own: at the timeout torchrun and its ranks go together.
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", str(cards), *argv, "--epochs", "2",
+                                 "--mesh_shape", meshes[0]], stdout=out,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=MULTICHIP_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
     numbers["train_s"] = time.perf_counter() - start
     if rc != 0:
         with open(log) as f:

@@ -16,6 +16,8 @@ and the model x seq meshes against one process and the JAX trainer.
   model and seq meshes' gate in tests/test_torch_parallel_tp.py and
   chip_smoke.py; the rounding-noise elements of
   tests/test_torch_parallel.py within 3 lr).
+- the model and seq ranks of a data line train on its first rank's rows,
+  whatever rows their loaders gave them.
 - the launcher stops every rank and raises when one exits non-zero or
   the ranks outlast their timeout; ``--device cuda`` raises without cards.
 - the barrier names this rank's card under NCCL.
@@ -158,6 +160,29 @@ def test_model_and_seq_meshes_follow_one_process_and_jax(setup, world, spec):
     for r in ranks[1:]:  # every rank gathers the same full state
         for k, v in ranks[0]["state"].items():
             assert torch.equal(r["state"][k], v), k
+
+
+@pytest.mark.parametrize("world, spec", [(2, "model=2"), (4, "model=2,seq=2")])
+def test_a_data_line_trains_on_its_first_ranks_rows(setup, tmp_path, world, spec):
+    """The model and seq ranks of a data line load the same rows, but a
+    loader's host augmentation (speed perturbation, drawn from a generator
+    its threads share) can hand them other waveforms, even of another
+    length. Every rank here gets other rows than rank 0: each trains on
+    rank 0's, the one-process run's losses and gradients."""
+    tmp, cfg, one, _ = setup
+    first = [_batch(i) for i in range(3)]
+    others = [{**_batch(10 + i, S=6400), "wav_lengths": np.asarray([6400, 5000, 3900, 6000],
+                                                                   np.int32)}
+              for i in range(3)]
+    torch.save([[a] + [b] * (world - 1) for a, b in zip(first, others)], tmp_path / "r.pt")
+    ranks = W.run_ranks(tmp_path, "train", world, timeout=150, cfg=cfg,
+                        init=str(tmp / "init.pt"), batches=str(tmp_path / "r.pt"),
+                        mesh_spec=spec, grads=True, by_rank=True)
+    for r in ranks:
+        np.testing.assert_allclose(r["loss0"], one["loss0"], rtol=1e-4)
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-4)
+        for k, g in one["grads0"].items():
+            torch.testing.assert_close(r["grads0"][k], g, rtol=1e-3, atol=1e-4)
 
 
 def test_launcher_stops_every_rank_when_one_raises(tmp_path):

@@ -72,9 +72,10 @@ def _full_grads(tr, grads):
 
 
 def train(tmp, cfg, init, batches, mesh_spec=None, accum=1, flush=False, grads=False,
-          seed0=0, device="cpu"):
+          seed0=0, device="cpu", by_rank=False):
     """Steps of the trainer on ``batches`` (a .pt of [step][data rank]
-    batch dicts; the one-process run takes rank 0's of one-rank lists).
+    batch dicts, or with ``by_rank`` [step][rank]; the one-process run
+    takes rank 0's of one-rank lists).
     Returns the losses, the full state dict after the steps, the kernel
     launches, and with ``grads`` the first batch's loss and full gradients
     before any step."""
@@ -83,7 +84,7 @@ def train(tmp, cfg, init, batches, mesh_spec=None, accum=1, flush=False, grads=F
     mesh = _mesh(mesh_spec)
     tr = _trainer(tmp, cfg, init, mesh, accum, device=device)
     steps = torch.load(batches, weights_only=False)
-    d = 0 if mesh is None else mesh.index("data")
+    d = 0 if mesh is None else mesh.rank if by_rank else mesh.index("data")
     out = {"state_init": {k: v.cpu().clone() for k, v in
                           gather_state_dict(tr.model.state_dict(), mesh).items()}}
     if grads:

@@ -18,9 +18,12 @@ Which backward a collective takes depends on how the ranks use its output:
   sums the gradient and keeps this rank's part; with ``replicated`` (the
   logits before the replicated CTC loss) it keeps this rank's part alone.
 
+``broadcast_`` (no autograd) hands every rank of a group its first
+rank's tensors: the rows a data line trains on.
+
 A group of one rank, or None, makes every collective the identity.
-``traffic`` counts the all-reduce calls this process makes and the bytes
-they carry.
+``traffic`` counts the all-reduce and broadcast calls this process makes
+and the bytes they carry.
 """
 
 import torch
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 
 
 class Traffic:
-    """All-reduce calls and the bytes they carry, since ``reset``."""
+    """Collective calls and the bytes they carry, since ``reset``."""
 
     def __init__(self):
         self.reset()
@@ -52,6 +55,33 @@ def _all_reduce(buf, group, op=dist.ReduceOp.SUM):
     traffic.calls += 1
     traffic.bytes += buf.numel() * buf.element_size()
     dist.all_reduce(buf, op=op, group=group.group)
+
+
+def _broadcast(buf, group):
+    traffic.calls += 1
+    traffic.bytes += buf.numel() * buf.element_size()
+    dist.broadcast(buf, src=group.ranks[0], group=group.group)
+
+
+def broadcast_(tensors, group):
+    """Every rank of ``group`` gets its first rank's ``tensors`` (the same
+    number, dtypes and ranks of dimensions on every rank; the shapes may
+    differ): a list of tensors, this rank's own on the first rank. No
+    autograd."""
+    if _trivial(group) or not tensors:
+        return tensors
+    with torch.no_grad():
+        shapes = torch.tensor([n for t in tensors for n in t.shape], dtype=torch.int64,
+                              device=tensors[0].device)
+        _broadcast(shapes, group)
+        shapes = shapes.tolist()
+        out = []
+        for t in tensors:
+            shape, shapes = shapes[:t.dim()], shapes[t.dim():]
+            buf = t.contiguous() if group.index == 0 else t.new_empty(shape)
+            _broadcast(buf, group)
+            out.append(buf)
+    return out
 
 
 def _sum(x, group):

@@ -18,8 +18,9 @@ compute the same function on any mesh:
 
 Ranks are laid out as JAX lays out devices, ``np.arange(world).reshape(
 sizes)``, the last axis innermost. ``make_mesh`` creates one
-process group for each line of each axis, and one for each (data, seq)
-plane, which the BatchNorm statistics span.
+process group for each line of each axis, one for each (data, seq)
+plane, which the BatchNorm statistics span, and one for each (model, seq)
+plane: the ranks of one data line, which train on the same rows.
 """
 
 import os
@@ -125,12 +126,13 @@ class Mesh:
 
     def _create_groups(self):
         """One process group for each line of each axis and of the (data,
-        seq) plane. Every rank creates every group, in the same order, as
-        ``torch.distributed.new_group`` requires."""
+        seq) and (model, seq) planes. Every rank creates every group, in the
+        same order, as ``torch.distributed.new_group`` requires."""
         self.distributed = True
         keys = [(a,) for a in self.names]
-        if "data" in self.names and "seq" in self.names:
-            keys.append(tuple(a for a in self.names if a in ("data", "seq")))
+        for plane in (("data", "seq"), ("model", "seq")):
+            if all(a in self.names for a in plane):
+                keys.append(tuple(a for a in self.names if a in plane))
         for key in keys:
             for row in _lines(self.ranks, [self.names.index(a) for a in key]):
                 pg = dist.new_group([int(r) for r in row])

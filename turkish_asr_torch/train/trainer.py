@@ -36,6 +36,9 @@ On a mesh (``mesh``, with the model sharded by ``parallel/mesh.shard_model``)
 each data rank holds its slice of the global batch and the step equals the
 one-process step on the global batch:
 
+- the model and seq ranks of a data line take the batch of its first rank
+  (``parallel/collectives.broadcast_``), so their activations agree
+  whatever their loaders drew;
 - every data rank pads its waveforms to the longest rank's length, as the
   one-process batch is padded;
 - the loss is the local ``sum(per_sample * mask)`` over the global
@@ -66,7 +69,7 @@ from turkish_asr_torch.audio.features import log_mel_spectrogram
 from turkish_asr_torch.decode.greedy import greedy_collapse_batch
 from turkish_asr_torch.models.conformer import ConformerCTC, derive_seed
 from turkish_asr_torch.ops.ctc import ctc_loss
-from turkish_asr_torch.parallel.collectives import all_reduce_
+from turkish_asr_torch.parallel.collectives import all_reduce_, broadcast_
 from turkish_asr_torch.parallel.mesh import (
     axis_group, barrier, gather_state_dict, grad_sq_norm, shard_seed, shard_state_dict)
 from turkish_asr_torch.train.checkpoint import (
@@ -99,6 +102,7 @@ class Trainer:
         self.mesh = mesh
         self.rank = 0 if mesh is None else mesh.rank
         self.data = axis_group(mesh, "data")
+        self.line = axis_group(mesh, "model", "seq")
         self.grad_group = axis_group(mesh, "data", "seq")
         if mesh is not None:  # the clip's norm, and the skip's, of the full gradient
             adam = optimizer.inner if isinstance(optimizer, MultiSteps) else optimizer
@@ -137,6 +141,12 @@ class Trainer:
     def _to_device(self, batch):
         out = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                for k, v in batch.items()}
+        if self.line is not None:
+            # The model and seq ranks of a data line load the same rows, but
+            # a loader's host augmentation draws from a generator its
+            # threads share in no fixed order: the line takes its first
+            # rank's batch, as JAX's one loader feeds all of a process's devices.
+            out = dict(zip(out, broadcast_(list(out.values()), self.line)))
         if self.data is not None:  # the global batch's padded length
             S = out["waveforms"].shape[1]
             longest = all_reduce_([torch.tensor([S], device=self.device)], self.data, "max")[0]
