@@ -2132,6 +2132,17 @@ def _log_losses(path):
         return [float(x) for x in re.findall(r"\] Loss: (\S+) LR", f.read())]
 
 
+def _ranks_agree(text, cards, label):
+    """Every rank logs each step's global loss to its output: ``cards``
+    equal values a step, else the ranks trained on different rows."""
+    steps = {}
+    for epoch, batch, loss in re.findall(r"Epoch \[(\d+)/\d+\] Batch \[(\d+)/\d+\] Loss: (\S+) LR",
+                                         text):
+        steps.setdefault((int(epoch), int(batch)), []).append(loss)
+    if not steps or any(len(v) != cards or len(set(v)) != 1 for v in steps.values()):
+        raise AssertionError(f"{label}: the ranks' step losses differ: {steps}")
+
+
 def _write_ckpt_of(pt, ckpt):
     """The .pt checkpoint ``pt`` (weights, Adam state, epoch, step) written
     as the JAX package's .ckpt by the port, as the ckpt phase writes one."""
@@ -2155,8 +2166,8 @@ def multichip_cli(workdir):
     epochs on MULTICHIP_CLI[0] under torchrun (rank 0 writes the .pt
     checkpoints), the last epoch's .pt written as a JAX .ckpt, then
     ``--resume`` on MULTICHIP_CLI[1] through ``multichip.launch`` continues
-    from that .ckpt for a third epoch. Returns the numbers and the final
-    .pt."""
+    from that .ckpt for a third epoch; every rank logs the same loss at
+    every step. Returns the numbers and the final .pt."""
     from turkish_asr_torch import multichip
     cards, meshes = MULTICHIP_CARDS, MULTICHIP_CLI
     corpus = os.path.join(workdir, "corpus_mc")
@@ -2187,6 +2198,9 @@ def multichip_cli(workdir):
     if rc != 0:
         with open(log) as f:
             raise AssertionError(f"torchrun main on {meshes[0]} exited {rc}:\n{f.read()[-6000:]}")
+    with open(log) as f:
+        first = f.read()
+    _ranks_agree(first, cards, f"torchrun main on {meshes[0]}")
     names = set(os.listdir(run))
     want = {"checkpoint_epoch_1.pt", "checkpoint_epoch_2.pt", "best_model.pt",
             "turkish_conformer_final.pt", "train.log"}
@@ -2203,6 +2217,8 @@ def multichip_cli(workdir):
         multichip.launch([sys.executable, *argv, "--epochs", "3", "--mesh_shape", meshes[1],
                           "--resume"], cards, "cuda", MULTICHIP_TIMEOUT, stdout=out)
     numbers["resume_s"] = time.perf_counter() - start
+    with open(log) as f:
+        _ranks_agree(f.read()[len(first):], cards, f"--resume on {meshes[1]}")
     with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
         text = f.read()
     resumed = _log_losses(os.path.join(run, "train.log"))[len(losses):]
