@@ -185,14 +185,23 @@ def test_a_data_line_trains_on_its_first_ranks_rows(setup, tmp_path, world, spec
             torch.testing.assert_close(r["grads0"][k], g, rtol=1e-3, atol=1e-4)
 
 
+def _rank_code(tmp_path, body):
+    """A rank's program: write its pid to ``pid<RANK>``, then ``body``;
+    ``wait(r)`` waits for rank r's pid file (ranks start in any order)."""
+    return ("import os, sys, time\n"
+            f"d = {str(tmp_path)!r}\n"
+            "open(os.path.join(d, 'pid' + os.environ['RANK']), 'w').write(str(os.getpid()))\n"
+            "def wait(r):\n"
+            "    while not os.path.exists(os.path.join(d, 'pid%d' % r)):\n"
+            "        time.sleep(0.05)\n" + body)
+
+
 def test_launcher_stops_every_rank_when_one_raises(tmp_path):
     """Rank 1 raises while rank 0 waits (as in a collective): the launcher
     kills rank 0 and raises at once, long before its timeout."""
-    code = ("import os, sys, time\n"
-            f"open(os.path.join({str(tmp_path)!r}, 'pid' + os.environ['RANK']), 'w')"
-            ".write(str(os.getpid()))\n"
-            "if os.environ['RANK'] == '1':\n    raise SystemExit(3)\n"
-            "time.sleep(600)\n")
+    code = _rank_code(tmp_path, "if os.environ['RANK'] == '1':\n"
+                                "    wait(0)\n    raise SystemExit(3)\n"
+                                "time.sleep(600)\n")
     start = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 exited 3"):
         multichip.launch([sys.executable, "-c", code], 2, "cpu", timeout=120)
@@ -201,13 +210,12 @@ def test_launcher_stops_every_rank_when_one_raises(tmp_path):
 
 
 def test_launcher_kills_hung_ranks_at_its_timeout(tmp_path):
-    code = ("import os, time\n"
-            f"open(os.path.join({str(tmp_path)!r}, 'pid' + os.environ['RANK']), 'w')"
-            ".write(str(os.getpid()))\n"
-            "assert os.environ['MASTER_ADDR'] == '127.0.0.1' and os.environ['WORLD_SIZE'] == '2'\n"
-            "if os.environ['RANK'] == '1':\n    time.sleep(600)\n")
-    with pytest.raises(TimeoutError, match="outlasted 5 s"):
-        multichip.launch([sys.executable, "-c", code], 2, "cpu", timeout=5)
+    code = _rank_code(tmp_path, "assert os.environ['MASTER_ADDR'] == '127.0.0.1'\n"
+                                "assert os.environ['WORLD_SIZE'] == '2'\n"
+                                "if os.environ['RANK'] == '1':\n    time.sleep(600)\n"
+                                "wait(1)\n")
+    with pytest.raises(TimeoutError, match="outlasted 15 s"):
+        multichip.launch([sys.executable, "-c", code], 2, "cpu", timeout=15)
     _assert_gone(int((tmp_path / "pid1").read_text()))
 
 
