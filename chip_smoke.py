@@ -177,7 +177,7 @@ Phases; any failure raises and the script exits non-zero.
    backward and both CTC kernels in the training ones), counted with the
    counts set to 0 before each configuration and read after it.
 
-``python3 chip_smoke.py --multichip`` (four cards, ``chiprun --chips 4``;
+``python3 chip_smoke.py --multichip`` (four cards on one host;
 raises with fewer visible cards) runs the parallel layer over NCCL, one
 rank a card, at flagship width (the parallel phase's init and batches),
 after the build:

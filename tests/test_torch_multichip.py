@@ -1,5 +1,5 @@
-"""The port's multi-rank layer beyond PR 9's meshes: ``turkish_asr_torch.multichip``
-(the counterpart of ``__graft_entry__.dryrun_multichip``), its launcher,
+"""The port's multi-rank layer beyond the meshes of test_torch_parallel*.py:
+``turkish_asr_torch.multichip`` (the counterpart of ``__graft_entry__.dryrun_multichip``), its launcher,
 and the model x seq meshes against one process and the JAX trainer.
 
 - ``python -m turkish_asr_torch.multichip 4 --device cpu`` starts four
