@@ -160,7 +160,20 @@ Phases; any failure raises and the script exits non-zero.
    time-sliced on one card measure correctness and overhead, not scaling.
 14. Memorization: ``turkish_asr_torch/scripts/overfit.py`` on the card in
    bf16: loss under 0.1 after 300 steps, the five words decoded back.
-15. Bench (``turkish_asr_torch/bench.py``): bench config 5's forward
+15. Data: the host C++ library (``turkish_asr_torch/native``) must build
+   and load; ``AudioPreprocessor()`` must choose the card and give
+   ``AudioPreprocessor(device="cpu")``'s features within 1e-4 on an 8 s
+   stereo WAV; ``resample`` at 44100 -> 16000 must call the native routine
+   and at 16000 -> 17777 (speed perturbation 0.9, whose native polyphase
+   bank exceeds ``wavio.NATIVE_BANK_MAX``) sum the taps in support, each
+   bit-equal to ``resample_native`` and within 1e-5 of the numpy fallback
+   (``TASR_NATIVE=0``), with both routes' host seconds;
+   ``levenshtein_native`` must equal the DP on 200 seeded pairs (both
+   timed); and ``ASRMetrics.compute_from_ids`` over one validation pass of
+   phase 5's trained model is timed with the native edit distance and with
+   the DP (the same results; host seconds, median of 5, printed beside the
+   card's name and power limit).
+16. Bench (``turkish_asr_torch/bench.py``): bench config 5's forward
    (Conformer-L: d_model 512, 8 heads, 16 blocks; B=16 x 64 s, T'=1601,
    seeded random weights) with the attention kernel against the same
    model with the plain core (``attn_kernel=False``) by the serving
@@ -202,7 +215,7 @@ cards' names and power limits and the NCCL version; then the cards' lines
 and {"ok": true, "device": {..., "count": 4}}.
 
 Each phase prints its seconds. The last six lines are a JSON line of
-phases 9-12's and 14's numbers, the parallel phase's JSON line, the bench
+phases 9-12's, 14's and 15's numbers, the parallel phase's JSON line, the bench
 phase's (its lines, launches and the long-form check), then the
 card, the kernels (launch counts from the training run, errors, chained
 and single-call times, bound_ms and bound_by from kernel_bounds,
@@ -1742,6 +1755,124 @@ def memorize_phase():
     return result
 
 
+# (orig, new, the route resample takes): a CD rate to 16 kHz; speed
+# perturbation 0.9, whose native polyphase bank exceeds NATIVE_BANK_MAX.
+DATA_RATIOS = ((44100, 16000, "native"), (16000, 17777, "taps"))
+DATA_PAIRS = 200  # seeded token-id pairs for the edit distance
+DATA_REPS = 5  # timed passes of the metrics over the validation batches
+
+
+def data_phase(trained, workdir, card):
+    """The host data path on the card's machine: the native library, the
+    AudioPreprocessor on the card against the CPU, the resampler's routes,
+    the edit distance, and the validation metrics' host seconds."""
+    from turkish_asr_torch.audio import wavio
+    from turkish_asr_torch.audio.features import AudioPreprocessor
+    from turkish_asr_torch.native import loader
+    from turkish_asr_torch.utils import metrics
+
+    if not loader.native_available():
+        raise AssertionError("the host C++ library did not build or load (g++)")
+    numbers = {"library": os.path.basename(loader.get_lib()._name)}
+
+    path = os.path.join(workdir, "data_phase.wav")
+    rng = np.random.default_rng(17)
+    wavio.write_wav(path, np.stack([_tone(8.0, 17), 0.1 * rng.standard_normal(8 * SR)])
+                    .astype(np.float32), SR)
+    card_pre, cpu_pre = AudioPreprocessor(), AudioPreprocessor(device="cpu")
+    if card_pre.device.type != "cuda":
+        raise AssertionError(f"AudioPreprocessor() chose {card_pre.device}, not the card")
+    got, want = card_pre(path), cpu_pre(path)
+    err = float(np.abs(got - want).max())
+    numbers["preprocessor"] = {"shape": list(got.shape), "max_abs_err": err}
+    print(f"data: AudioPreprocessor() on {card_pre.device} against device='cpu' on an 8 s "
+          f"stereo file: {got.shape}, max |card - cpu| {err:.3e}", flush=True)
+    if got.shape != want.shape or not np.isfinite(got).all() or not err <= 1e-4:
+        raise AssertionError(f"AudioPreprocessor on the card: {got.shape} against "
+                             f"{want.shape}, max error {err}")
+
+    numbers["resample"] = {}
+    real_native = loader.resample_native
+    for orig, new, want_route in DATA_RATIOS:
+        x = (0.3 * rng.standard_normal(orig)).astype(np.float32)
+        calls = []
+
+        def counted(*args):
+            calls.append(args[1:3])
+            return real_native(*args)
+
+        with mock.patch.object(loader, "resample_native", counted):
+            t0 = time.perf_counter()
+            out = wavio.resample(x, orig, new)
+            port_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = loader.resample_native(x, orig, new)
+        native_s = time.perf_counter() - t0
+        with mock.patch.dict(os.environ, {"TASR_NATIVE": "0"}):
+            fallback = wavio.resample(x, orig, new)
+        route = "native" if calls else "taps"
+        fb_err = float(np.abs(out - fallback).max())
+        numbers["resample"][f"{orig}->{new}"] = {
+            "route": route, "bit_equal_native": bool(np.array_equal(out, native)),
+            "max_abs_err_fallback": fb_err, "port_s": port_s, "native_s": native_s}
+        print(f"data: resample {orig} -> {new} (1 s): route {route}, bit-equal to "
+              f"resample_native {np.array_equal(out, native)}, max |port - numpy fallback| "
+              f"{fb_err:.3e}; host s: port {port_s:.4f}, resample_native {native_s:.4f}",
+              flush=True)
+        if route != want_route or not np.array_equal(out, native) or not fb_err <= 1e-5:
+            raise AssertionError(f"resample {orig} -> {new}: {numbers['resample']}")
+
+    pairs = [[rng.integers(0, 40, rng.integers(0, 60)).tolist() for _ in range(2)]
+             for _ in range(DATA_PAIRS)]
+    t0 = time.perf_counter()
+    native = [loader.levenshtein_native(a, b) for a, b in pairs]
+    t1 = time.perf_counter()
+    dp = [metrics._levenshtein_dp(a, b) for a, b in pairs]
+    t2 = time.perf_counter()
+    numbers["levenshtein"] = {"pairs": DATA_PAIRS, "native_s": t1 - t0, "dp_s": t2 - t1}
+    print(f"data: levenshtein_native against the DP on {DATA_PAIRS} seeded pairs of 0-59 ids: "
+          f"equal {native == dp}; host s: native {t1 - t0:.6f}, DP {t2 - t1:.6f}", flush=True)
+    if native != dp:
+        raise AssertionError("levenshtein_native differs from the DP")
+
+    batches = []
+    real_compute = metrics.ASRMetrics.compute_from_ids
+
+    def recorded(self, *args):
+        batches.append((self, args))
+        return real_compute(self, *args)
+
+    with mock.patch.object(metrics.ASRMetrics, "compute_from_ids", recorded):
+        trained.validate(trained.start_epoch)
+    if not batches:
+        raise AssertionError("the validation pass computed no metrics")
+
+    def seconds():
+        start = time.perf_counter()
+        results = [real_compute(m, *args) for m, args in batches]
+        return time.perf_counter() - start, results
+
+    timed = {}
+    for name, env in (("native", "1"), ("dp", "0")):
+        with mock.patch.dict(os.environ, {"TASR_NATIVE": env}):
+            runs = [seconds() for _ in range(DATA_REPS)]
+        timed[name] = (statistics.median(r[0] for r in runs), runs[0][1])
+    if timed["native"][1] != timed["dp"][1]:
+        raise AssertionError("the native and DP metrics disagree")
+    rows = sum(len(args[1]) for _, args in batches)
+    hyp_chars = sum(len(t) for _, preds, _ in timed["native"][1] for t in preds)
+    ref_chars = sum(len(t) for _, _, refs in timed["native"][1] for t in refs)
+    numbers["metrics"] = {"batches": len(batches), "rows": rows, "hyp_chars": hyp_chars,
+                          "ref_chars": ref_chars, "native_s": timed["native"][0],
+                          "dp_s": timed["dp"][0]}
+    print(f"data: ASRMetrics.compute_from_ids over one validation pass of the training run "
+          f"({len(batches)} batches, {rows} rows, {hyp_chars} hypothesis and {ref_chars} "
+          f"reference characters), median of {DATA_REPS}: native "
+          f"{timed['native'][0]:.6f} s, DP {timed['dp'][0]:.6f} s (host seconds on the CPU "
+          f"of the machine holding {card})", flush=True)
+    return numbers
+
+
 # ---------------------------------------------------------------------------
 # Phase 14: the parallel layer on one card.
 
@@ -2547,6 +2678,7 @@ def main():
                    "export": _phase("export", export_phase, workdir, ckpt)}
         parallel = _phase("parallel", parallel_phase, workdir, pt)
         numbers["memorization"] = _phase("memorization", memorize_phase)
+        numbers["data"] = _phase("data", data_phase, trained, workdir, card)
     bench = _phase("bench", bench_phase)
     print(f"all phases: {time.perf_counter() - start:.3f} s", flush=True)
 

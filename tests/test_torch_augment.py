@@ -8,8 +8,10 @@ masks are whole stripes, and every mask is one contiguous run no wider
 than its parameter. The host classes are copies and
 are held against the JAX package's on the same numpy generator state. The
 resampler is held against the JAX package's at ratios whose polyphase bank
-is small; the same terms are summed in another order (5e-7 measured),
-hence 1e-5.
+is small, within 1e-5: where both packages load their native library the
+bits are equal (tests/test_torch_native.py), and without it the JAX
+package's numpy fallback sums float32 products in another order (5e-7
+measured).
 """
 
 import numpy as np

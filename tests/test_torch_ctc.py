@@ -22,8 +22,9 @@ import torch
 
 from turkish_asr_tpu.ops._ctc_pallas_impl import _ONEHOT_ELEM_LIMIT
 from turkish_asr_tpu.ops.ctc import ctc_loss as jax_ctc_loss
+from turkish_asr_tpu.ops.ctc import ctc_loss_numpy_oracle as jax_oracle
 from turkish_asr_torch.ops._ctc import ctc_topology, label_chains
-from turkish_asr_torch.ops.ctc import ctc_loss
+from turkish_asr_torch.ops.ctc import ctc_loss, ctc_loss_numpy_oracle
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -103,6 +104,21 @@ def test_loss_and_grad_match_jax(case, impl):
     np.testing.assert_allclose(got_grad, want_grad, **GRAD_TOL)
     for b, n in enumerate(il):  # padded frames get exactly zero gradient
         assert np.all(got_grad[b, int(n):] == 0.0)
+
+
+@pytest.mark.parametrize("case", ["ragged0", "ragged2", "repeated_and_empty", "dummy_row"])
+def test_numpy_oracle_is_the_jax_packages(case):
+    """The port's copy of the numpy oracle gives the JAX one's per-sample
+    losses bit for bit, and the port's plain loss is within the loss
+    tolerance of it wherever an alignment exists."""
+    lp, tg, il, tl = CASES[case]()
+    want = jax_oracle(lp, tg, il, tl)
+    got = ctc_loss_numpy_oracle(lp, tg, il, tl)
+    np.testing.assert_array_equal(got, want)
+    per, _, _ = _port_loss_and_grad(lp, tg, il, tl)
+    finite = np.isfinite(got)
+    assert finite.any()
+    np.testing.assert_allclose(per[finite], got[finite], **LOSS_TOL)
 
 
 def test_impossible_alignment_is_zeroed():

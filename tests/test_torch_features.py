@@ -1,4 +1,5 @@
-"""Port's log-mel front-end against the JAX one on the same waveforms.
+"""Port's log-mel front-end and AudioPreprocessor against the JAX ones on
+the same waveforms and files.
 
 Tolerance 1e-4 absolute on CMVN-normalized features: the bar
 tests/test_features.py holds the JAX front-end to against its fp64 oracle.
@@ -9,8 +10,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from turkish_asr_tpu.audio.features import AudioPreprocessor as JaxAudioPreprocessor
 from turkish_asr_tpu.audio.features import log_mel_spectrogram as jax_log_mel
-from turkish_asr_torch.audio.features import log_mel_spectrogram
+from turkish_asr_torch.audio.features import AudioPreprocessor, log_mel_spectrogram
+from turkish_asr_torch.audio.wavio import write_wav
 
 ATOL = 1e-4
 
@@ -65,3 +68,32 @@ def test_padded_row_equals_unpadded_utterance():
     inpad, fl = log_mel_spectrogram(torch.from_numpy(padded), torch.tensor([9000]))
     n = int(fl[0])
     np.testing.assert_allclose(inpad[0, :n].numpy(), alone[0, :n].numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("n_mels,normalize", [(80, True), (40, False)])
+def test_audio_preprocessor_matches_jax(tmp_path, n_mels, normalize):
+    """A 22.05 kHz stereo file: decoded, mixed to mono and resampled to the
+    same waveform, then featurized on the CPU within 1e-4."""
+    path = str(tmp_path / "a.wav")
+    x = np.random.default_rng(4).standard_normal((2, 30000)).astype(np.float32) * 0.2
+    write_wav(path, x, 22050)
+    port = AudioPreprocessor(n_mels=n_mels, normalize=normalize, device="cpu")
+    ref = JaxAudioPreprocessor(n_mels=n_mels, normalize=normalize)
+    wave, sr = port.load_audio(path)
+    want_wave, want_sr = ref.load_audio(path)
+    assert sr == want_sr == 16000
+    np.testing.assert_array_equal(wave, want_wave)
+    got, want = port(path), ref(path)
+    assert got.shape == want.shape == (1 + len(wave) // 160, n_mels)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_audio_preprocessor_runs_on_the_card_or_raises(monkeypatch):
+    """The default device is the card; without one the constructor raises,
+    and the CPU is used only when the caller names it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            AudioPreprocessor(**kw)
+    assert AudioPreprocessor(device="cpu").device == torch.device("cpu")

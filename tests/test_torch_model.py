@@ -19,9 +19,10 @@ import pytest
 import torch
 
 from turkish_asr_tpu.models.conformer import ModelConfig as JaxConfig
-from turkish_asr_tpu.models.conformer import apply_model, init_model as jax_init
+from turkish_asr_tpu.models.conformer import apply_model, count_params as jax_count_params
+from turkish_asr_tpu.models.conformer import init_model as jax_init
 from turkish_asr_tpu.utils.torch_export import export_torch_state_dict
-from turkish_asr_torch.models.conformer import ConformerCTC, ModelConfig, init_model
+from turkish_asr_torch.models.conformer import ConformerCTC, ModelConfig, count_params, init_model
 from turkish_asr_torch.utils.weights import config_from_state_dict, load_pt, state_dict_from_jax
 
 CFG = dict(n_mels=80, d_model=64, n_heads=4, n_blocks=2, n_classes=56, dropout=0.0)
@@ -67,6 +68,15 @@ def test_state_dict_from_jax_equals_export(jax_model):
     for key, value in want.items():
         assert got[key].dtype == value.dtype, key
         torch.testing.assert_close(got[key], value, rtol=0, atol=0)
+
+
+def test_count_params_equals_the_jax_count(jax_model):
+    """On the bridged weights: the trainable parameters, not the dead
+    ``norm_conv`` GroupNorm the reference declares (no JAX leaf)."""
+    model = _port_model(jax_model)
+    assert count_params(model) == jax_count_params(jax_model[0])
+    assert sum(p.numel() for p in model.parameters()) == (
+        count_params(model) + 2 * CFG["d_model"] * CFG["n_blocks"])
 
 
 def test_strict_load_covers_every_key(jax_model):

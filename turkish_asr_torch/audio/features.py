@@ -1,10 +1,11 @@
-"""Log-mel front-end in PyTorch.
+"""Log-mel front-end in PyTorch, and the load-and-featurize class.
 
 Counterpart of turkish_asr_tpu/audio/features.py::log_mel_spectrogram
-(:177-275), which matches torchaudio's ``MelSpectrogram(n_fft=400,
-hop_length=160, n_mels=80, mel_scale="htk")`` (power 2, center=True,
-reflect padding, periodic Hann) -> ``AmplitudeToDB(top_db=80)`` ->
-per-utterance CMVN with the unbiased std.
+(:177-275) and ``AudioPreprocessor`` (:278-325). The log-mel matches
+torchaudio's ``MelSpectrogram(n_fft=400, hop_length=160, n_mels=80,
+mel_scale="htk")`` (power 2, center=True, reflect padding, periodic Hann)
+-> ``AmplitudeToDB(top_db=80)`` -> per-utterance CMVN with the unbiased
+std.
 
 The STFT is framing followed by one fp32 matmul with a windowed-DFT matrix,
 then one fp32 matmul with the mel filterbank; both run at full fp32 (no
@@ -18,6 +19,9 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from turkish_asr_torch.audio.wavio import TARGET_SAMPLE_RATE, load_audio
+from turkish_asr_torch.utils.device import resolve_device
 
 
 def _hz_to_mel_htk(f):
@@ -148,3 +152,40 @@ def log_mel_spectrogram(waveform, lengths=None, *, n_fft=400, hop_length=160,
     if single:
         return log_mel[0]
     return log_mel, frame_lengths.to(torch.int32)
+
+
+class AudioPreprocessor:
+    """Load-and-featurize pipeline of the reference's AudioPreprocessor
+    (reference data/preprocessing.py:16-129): ``__call__(path)`` -> (T,
+    n_mels) numpy float32 features.
+
+    The log-mel runs on ``device``, the card by default; without a card the
+    constructor raises unless the caller passes ``device="cpu"``.
+    """
+
+    def __init__(self, sample_rate=TARGET_SAMPLE_RATE, n_mels=80, n_fft=400, hop_length=160,
+                 win_length=400, f_min=0.0, f_max=8000.0, normalize=True, device=None):
+        self.sample_rate = sample_rate
+        self.n_mels = n_mels
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.win_length = win_length
+        self.f_min = f_min
+        self.f_max = f_max
+        self.normalize = normalize
+        self.device = resolve_device("cuda" if device is None else device)
+
+    def load_audio(self, path):
+        return load_audio(path, self.sample_rate)
+
+    def extract_features(self, waveform):
+        x = torch.from_numpy(np.asarray(waveform, dtype=np.float32).reshape(-1))
+        feats = log_mel_spectrogram(
+            x.to(self.device), n_fft=self.n_fft, hop_length=self.hop_length,
+            win_length=self.win_length, n_mels=self.n_mels, sample_rate=self.sample_rate,
+            f_min=self.f_min, f_max=self.f_max, normalize=self.normalize)
+        return feats.cpu().numpy()
+
+    def __call__(self, path):
+        waveform, _ = self.load_audio(path)
+        return self.extract_features(waveform)

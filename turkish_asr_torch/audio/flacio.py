@@ -2,7 +2,7 @@
 # reference-file citations differ. The JAX package's own __init__ files
 # import JAX, so this jax-free host module cannot be imported from there.
 """Self-contained FLAC decoder (pure Python; native C++ fast path through
-turkish_asr_torch.audio.native).
+turkish_asr_torch.native).
 
 The reference decodes FLAC through torchaudio/ffmpeg
 (reference data/preprocessing.py:66-79, its image installs ffmpeg —
@@ -338,7 +338,7 @@ def read_flac(path):
     with open(path, "rb") as f:
         data = f.read()
     try:
-        from turkish_asr_torch.audio.native import flac_decode_native
+        from turkish_asr_torch.native.loader import flac_decode_native
         native = flac_decode_native(data)
         if native is not None:
             return native

@@ -1,6 +1,6 @@
-# Copied from turkish_asr_tpu/audio/wavio.py; only the imports and the form of the
-# reference-file citations differ. The JAX package's own __init__ files
-# import JAX, so this jax-free host module cannot be imported from there.
+# Copied from turkish_asr_tpu/audio/wavio.py; only the imports, the form of the
+# reference-file citations and ``resample`` differ. The JAX package's own __init__
+# files import JAX, so this jax-free host module cannot be imported from there.
 """Host-side audio I/O: RIFF/WAVE decode and windowed-sinc resampling.
 
 The reference delegates these to torchaudio's C++ ops
@@ -17,7 +17,7 @@ dependency here; this module implements the same contract in numpy:
   ``AudioPreprocessor.load_audio`` contract).
 
 A faster C++ implementation is slotted in via
-``turkish_asr_torch.audio.native`` — this numpy path is the always-available
+``turkish_asr_torch.native`` — this numpy path is the always-available
 fallback and the correctness oracle.
 """
 
@@ -110,7 +110,7 @@ def read_audio(path):
 def read_wav(path):
     """Decode a RIFF/WAVE file.
 
-    Uses the native C++ decoder (turkish_asr_torch.audio.native) when available,
+    Uses the native C++ decoder (turkish_asr_torch.native) when available,
     with this numpy implementation as the always-available fallback/oracle.
 
     Returns:
@@ -124,7 +124,7 @@ def read_wav(path):
         raise ValueError(f"Not a RIFF/WAVE file: {path}")
 
     try:
-        from turkish_asr_torch.audio.native import wav_decode_native
+        from turkish_asr_torch.native.loader import wav_decode_native
         native = wav_decode_native(data)
         if native is not None:
             return native
@@ -209,18 +209,66 @@ def write_wav(path, waveform, sample_rate):
         f.write(pcm)
 
 
+# The largest polyphase bank (phases x taps, float64) for which ``resample``
+# calls the native routine: 8 MB. The native routine builds its whole bank
+# before it sums, which at a speed-perturbation ratio such as 16000 -> 17777
+# (gcd 1: 17777 x 16014 weights) is 2.3 GB and seconds of sin and cos a call.
+NATIVE_BANK_MAX = 1 << 20
+
+
+def _resample_taps(x, o, n, lowpass_filter_width, rolloff):
+    """(channels, samples) float32 at rates o -> n (reduced by their gcd),
+    in the native routine's arithmetic, evaluated only at the taps inside
+    the filter's support.
+
+    The native routine (``csrc/host/asr_native.cpp::resample_f32``) computes
+    every weight in float64 as below and sums, for output j = h * n + ph, the
+    products ``(double) x[h * o + k - width] * w[ph, k]`` over all
+    ``2 * width + o`` taps k in ascending order, then rounds once to float32.
+    Outside the ``2 * width + 1`` taps around j * o / n the window clips t
+    to the filter's edge, where each weight is ~1e-49: adding them moves no
+    sum that a tap in support has made nonzero. So the same products,
+    added in the same order over the taps in support, give the same bits.
+    """
+    base = min(o, n) * rolloff
+    width = math.ceil(lowpass_filter_width * o / base)
+    n_channels, length = x.shape
+    ph = np.arange(n)
+    first = (ph * o) // n  # the centre tap's input offset within its hop
+    k = first[:, None] + np.arange(-width, width + 1)[None, :]  # (phase, tap) input offsets
+    t = (-ph / n)[:, None] + k / o
+    t = np.clip(t * base, -lowpass_filter_width, lowpass_filter_width)
+    window = np.cos(t * math.pi / lowpass_filter_width / 2.0)
+    window = window * window
+    tp = t * math.pi
+    sinc = np.where(tp == 0.0, 1.0, np.sin(tp) / np.where(tp == 0.0, 1.0, tp))
+    kern = sinc * window * (base / o)
+    j = np.arange(math.ceil(n * length / o))
+    m0 = (j // n) * o + first[j % n]
+    kern = kern[j % n]
+    acc = np.zeros((n_channels, len(j)))
+    for d in range(2 * width + 1):
+        m = m0 + (d - width)
+        tap = np.where((m >= 0) & (m < length), x[:, np.clip(m, 0, length - 1)], 0.0)
+        acc += tap.astype(np.float64) * kern[:, d]
+    return acc.astype(np.float32)
+
+
 def resample(waveform, orig_freq, new_freq, lowpass_filter_width=6, rolloff=0.99):
     """Windowed-sinc resample (channels, samples) float32 -> new rate.
 
     The filter of torchaudio's default resampler and of the JAX package's
     ``resample`` (Hann-windowed sinc lowpass at min(orig, new) * rolloff,
-    in the rates reduced by their gcd), evaluated only at the taps inside
-    its support: output sample j sums the 2 * width + 1 inputs m around
-    j * o / n with weight k((m / o - j / n) * base). The JAX package builds
-    the whole (n, 2 * width + o) polyphase bank instead, which for a
-    speed-perturbation ratio such as 16000 -> 17777 (gcd 1) is a 1.1 GB
-    table and ~10 s a call; the sums here are the same terms in another
-    order.
+    in the rates reduced by their gcd). Mono input goes to the native
+    routine first (``turkish_asr_torch.native.resample_native``), as in
+    the JAX package, where its polyphase bank holds at most
+    ``NATIVE_BANK_MAX`` weights. Otherwise, and when the library is
+    missing or ``TASR_NATIVE=0``, ``_resample_taps`` sums the same float64
+    products over the taps in support only, which gives the native
+    routine's bits. The JAX package's numpy fallback builds the whole (n,
+    2 * width + o) polyphase bank instead, which for a speed-perturbation
+    ratio such as 16000 -> 17777 (gcd 1) is a 1.1 GB table and ~10 s a
+    call; its native routine builds the same bank in float64.
     """
     x = np.asarray(waveform, dtype=np.float32)
     squeeze = x.ndim == 1
@@ -231,20 +279,13 @@ def resample(waveform, orig_freq, new_freq, lowpass_filter_width=6, rolloff=0.99
 
     g = math.gcd(int(orig_freq), int(new_freq))
     o, n = int(orig_freq) // g, int(new_freq) // g
-    base = min(o, n) * rolloff
-    width = math.ceil(lowpass_filter_width * o / base)
-    n_channels, length = x.shape
-    j = np.arange(math.ceil(n * length / o), dtype=np.int64)
-    m = (j * o) // n
-    m = m[:, None] + np.arange(-width, width + 1)[None, :]  # (out, taps) input indices
-    t = (m / o - j[:, None] / n) * base
-    t = np.clip(t, -lowpass_filter_width, lowpass_filter_width)
-    window = np.cos(t * math.pi / lowpass_filter_width / 2) ** 2
-    t *= math.pi
-    kern = np.where(t == 0, 1.0, np.sin(t) / np.where(t == 0, 1.0, t)) * window * (base / o)
-    valid = (m >= 0) & (m < length)
-    taps = np.where(valid[None], x[:, np.clip(m, 0, length - 1)], 0.0)
-    out = (taps * kern.astype(np.float32)[None]).sum(-1).astype(np.float32)
+    width = math.ceil(lowpass_filter_width * o / (min(o, n) * rolloff))
+    if x.shape[0] == 1 and n * (2 * width + o) <= NATIVE_BANK_MAX:
+        from turkish_asr_torch.native.loader import resample_native
+        native = resample_native(x[0], orig_freq, new_freq, lowpass_filter_width, rolloff)
+        if native is not None:
+            return native if squeeze else native[None, :]
+    out = _resample_taps(x, o, n, lowpass_filter_width, rolloff)
     return out[0] if squeeze else out
 
 

@@ -1,6 +1,6 @@
 // Copied into turkish_asr_torch from turkish_asr_tpu/native/src/asr_native.cpp
 // (the JAX package's host decoders), unchanged below this header, so that
-// the port builds its native library (audio/native.py) from its own tree.
+// the port builds its native library (native/loader.py) from its own tree.
 //
 // Native host-side hot ops for turkish_asr_tpu.
 //

@@ -7,9 +7,12 @@ bucket tables, ``collate_batch`` (with its dummy-row contract:
 ``wav_lengths = min(S, 640)``, ``target_lengths = 0``) and
 ``PrefetchLoader``. The training feed carries padded waveforms; log-mel and
 SpecAugment run on the device inside the train step. ``ASRDataset.__getitem__``
-(the reference's feature item) uses the port's log-mel on the CPU. The
-sampler's process slicing (``process_index``/``process_count``) gives each
-"data" rank of a mesh its interleaved slice of every global batch
+(the reference's feature item) goes through ``self.preprocessor``, an
+``AudioPreprocessor`` (the JAX module's :72) made with ``device="cpu"``:
+the item runs on the loader's host threads, so its log-mel runs on the CPU
+because the dataset asks for it, not as a fallback. The sampler's process
+slicing (``process_index``/``process_count``) gives each "data" rank of a
+mesh its interleaved slice of every global batch
 (``turkish_asr_torch/main.py``).
 """
 
@@ -21,10 +24,8 @@ import threading
 
 import numpy as np
 
-import torch
-
 from turkish_asr_torch.audio.augment import NoisePerturbation, SpecAugment, SpeedPerturbation
-from turkish_asr_torch.audio.features import log_mel_spectrogram
+from turkish_asr_torch.audio.features import AudioPreprocessor
 from turkish_asr_torch.audio.wavio import TARGET_SAMPLE_RATE, load_audio
 from turkish_asr_torch.data.buckets import DEFAULT_WAVEFORM_BUCKETS, bucket_table
 
@@ -59,6 +60,7 @@ class ASRDataset:
         self.tokenizer = tokenizer
         self.n_mel_channels = n_mel_channels
         self.augment = augment
+        self.preprocessor = AudioPreprocessor(n_mels=n_mel_channels, normalize=True, device="cpu")
         rng = np.random.default_rng(seed)
         self.speed_perturb = SpeedPerturbation(rng=rng) if speed_perturb else None
         self.noise_perturb = NoisePerturbation(noise_dir=noise_dir, rng=rng) if noise_dir else None
@@ -117,8 +119,7 @@ class ASRDataset:
         contract; SpecAugment applied on host here (the training loader
         instead applies it on-device)."""
         waveform, target = self.get_waveform(idx)
-        features = log_mel_spectrogram(torch.from_numpy(waveform),
-                                       n_mels=self.n_mel_channels).numpy()
+        features = self.preprocessor.extract_features(waveform)
         if self.training and self.spec_augment:
             features = self.spec_augment(features)
         return features, target

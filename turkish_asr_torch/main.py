@@ -30,7 +30,7 @@ import torch.distributed as dist
 from turkish_asr_torch.data.buckets import DEFAULT_WAVEFORM_BUCKETS
 from turkish_asr_torch.data.dataset import BucketingSampler, PrefetchLoader, create_datasets
 from turkish_asr_torch.data.tokenizer import load_tokenizer
-from turkish_asr_torch.models.conformer import ModelConfig, init_model
+from turkish_asr_torch.models.conformer import ModelConfig, count_params, init_model
 from turkish_asr_torch.parallel.mesh import (
     barrier, check_batch, init_distributed, make_mesh, shard_model)
 from turkish_asr_torch.train.optim import make_optimizer
@@ -119,7 +119,7 @@ def main(argv=None):
                             n_classes=tokenizer.vocab_size, dropout=config.encoder_dropout,
                             masked_norm=config.masked_norm)
     model = init_model(model_cfg, torch.Generator().manual_seed(config.seed))
-    logger.info(f"Model Parameters: {sum(p.numel() for p in model.parameters()):,} total")
+    logger.info(f"Model Parameters: {count_params(model):,} total")
     model = shard_model(model, mesh).to(device)
 
     # ceil: a partial accumulation window is flushed at epoch end and takes

@@ -428,6 +428,13 @@ class ConformerCTC(nn.Module):
             block.conv.batch_norm.running_var.copy_(var)
 
 
+def count_params(model):
+    """The elements of the model's trainable parameters: the JAX package's
+    ``count_params`` of the same weights. The dead ``norm_conv`` GroupNorm is
+    frozen and has no JAX leaf, so it is not counted."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)
+
+
 def init_model(cfg: ModelConfig, generator=None):
     """A ConformerCTC with PyTorch's default uniform(+-1/sqrt(fan_in)) draws
     for every linear and conv weight and bias, as the JAX package's

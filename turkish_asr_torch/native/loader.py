@@ -1,8 +1,11 @@
-"""The port's loader for the host C++ audio decoders.
+"""The port's loader for the host C++ library: the WAV and FLAC decoders,
+the windowed-sinc resampler and the Levenshtein distance.
 
-Counterpart of turkish_asr_tpu/native/loader.py (``wav_decode_native``,
-``flac_decode_native`` :83-133), without importing it. The C++ source is
-the port's own copy, ``turkish_asr_torch/csrc/host/asr_native.cpp`` (of
+Counterpart of turkish_asr_tpu/native/loader.py (``get_lib``,
+``native_available``, ``wav_decode_native``, ``flac_decode_native``,
+``resample_native``, ``levenshtein_native``, with its argtypes), without
+importing it. The C++ source is the port's own copy,
+``turkish_asr_torch/csrc/host/asr_native.cpp`` (of
 ``turkish_asr_tpu/native/src/asr_native.cpp``), compiled at first use
 with::
 
@@ -10,13 +13,16 @@ with::
 
 at the root of the checkout (git-ignored), the file named by a hash of the
 source and the flags as ``ops/_build.py`` names the CUDA libraries. With
-no g++, or with ``TASR_NATIVE=0``, ``get_lib`` returns None and the
-callers (``audio/wavio.py::read_wav``, ``audio/flacio.py::read_flac``)
-run their numpy and Python decoders. Host code, not a TPU kernel.
+no g++, or with ``TASR_NATIVE=0``, ``get_lib`` returns None, every
+function here returns None, and the callers (``audio/wavio.py::read_wav``
+and ``resample``, ``audio/flacio.py::read_flac``,
+``utils/metrics.py::_edit_distance``) run their numpy and Python
+versions. Host code, not a TPU kernel.
 """
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import threading
@@ -54,12 +60,17 @@ def _build(so_path):
 
 
 def _bind(lib):
+    f32p, i32p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
     for name in ("wav_decode", "flac_decode"):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
-                       ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, f32p, ctypes.POINTER(ctypes.c_int64),
+                       ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.resample_f32.restype = ctypes.c_int64
+    lib.resample_f32.argtypes = [f32p, ctypes.c_int64, f32p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_double]
+    lib.levenshtein_i32.restype = ctypes.c_int64
+    lib.levenshtein_i32.argtypes = [i32p, ctypes.c_int64, i32p, ctypes.c_int64]
     return lib
 
 
@@ -83,6 +94,10 @@ def get_lib():
         except OSError:
             return None
         return _lib
+
+
+def native_available():
+    return get_lib() is not None
 
 
 def _decode(name, data):
@@ -115,3 +130,30 @@ def wav_decode_native(data):
 def flac_decode_native(data):
     """FLAC bytes -> (float32 (channels, samples), sample_rate) or None."""
     return _decode("flac_decode", data)
+
+
+def resample_native(waveform, orig_freq, new_freq, lowpass_filter_width=6, rolloff=0.99):
+    """float32 (samples,) -> the resampled float32 (samples',), or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(waveform, dtype=np.float32)
+    g = math.gcd(int(orig_freq), int(new_freq))
+    target = math.ceil((new_freq // g) * len(x) / (orig_freq // g))
+    out = np.empty(max(target, 1), dtype=np.float32)
+    produced = lib.resample_f32(x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(x),
+                                out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                                int(orig_freq), int(new_freq), int(lowpass_filter_width),
+                                float(rolloff))
+    return out[:produced]
+
+
+def levenshtein_native(a, b):
+    """Edit distance between two int32 sequences, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    aa = np.ascontiguousarray(a, dtype=np.int32)
+    bb = np.ascontiguousarray(b, dtype=np.int32)
+    return int(lib.levenshtein_i32(aa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(aa),
+                                   bb.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(bb)))

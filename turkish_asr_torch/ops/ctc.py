@@ -13,13 +13,15 @@ targets, or raise for what they do not take. Both devices go through
 
 ``ctc_plan`` is the kernels' launch plan, in Python so that the CPU tests
 hold it. ``ctc_loss.launches_fwd`` and ``ctc_loss.launches_bwd`` count the
-kernel launches.
+kernel launches. ``ctc_loss_numpy_oracle`` is a copy of the JAX module's
+numpy dynamic program (:187-224), for tests.
 """
 
 import ctypes
 import threading
 from collections import namedtuple
 
+import numpy as np
 import torch
 
 from turkish_asr_torch.ops._build import load_library
@@ -244,3 +246,43 @@ def ctc_loss(log_probs, targets, input_lengths, target_lengths, blank_id=0, redu
 
 ctc_loss.launches_fwd = 0
 ctc_loss.launches_bwd = 0
+
+
+def ctc_loss_numpy_oracle(log_probs, targets, input_lengths, target_lengths,
+                          blank_id=0):
+    """Reference dynamic program (per-sample NLL), numpy, for tests."""
+    log_probs = np.asarray(log_probs, dtype=np.float64)
+    out = []
+    for b in range(log_probs.shape[0]):
+        T = int(input_lengths[b])
+        tl = int(target_lengths[b])
+        y = list(np.asarray(targets[b][:tl], dtype=np.int64))
+        ext = [blank_id]
+        for c in y:
+            ext += [c, blank_id]
+        S = len(ext)
+        alpha = np.full((T, S), -np.inf)
+        alpha[0, 0] = log_probs[b, 0, ext[0]]
+        if S > 1:
+            alpha[0, 1] = log_probs[b, 0, ext[1]]
+        for t in range(1, T):
+            for s in range(S):
+                cands = [alpha[t - 1, s]]
+                if s >= 1:
+                    cands.append(alpha[t - 1, s - 1])
+                if s >= 2 and ext[s] != blank_id and ext[s] != ext[s - 2]:
+                    cands.append(alpha[t - 1, s - 2])
+                m = max(cands)
+                if m == -np.inf:
+                    alpha[t, s] = -np.inf
+                else:
+                    alpha[t, s] = m + np.log(sum(np.exp(c - m) for c in cands))
+                alpha[t, s] += log_probs[b, t, ext[s]]
+        if S > 1:
+            tail = [alpha[T - 1, S - 1], alpha[T - 1, S - 2]]
+            m = max(tail)
+            ll = -np.inf if m == -np.inf else m + np.log(sum(np.exp(c - m) for c in tail))
+        else:
+            ll = alpha[T - 1, 0]
+        out.append(-ll)
+    return np.array(out)

@@ -1,11 +1,12 @@
 """WER/CER metrics.
 
-Copied from turkish_asr_tpu/utils/metrics.py (numpy only), without its
-native Levenshtein kernel: the edit distance is the two-row dynamic
-program. The reference computes WER/CER via the jiwer package
-(reference utils/metrics.py:48-50); ``wer``/``cer`` implement the
-same corpus-level definition: total edit distance over all pairs divided by
-total reference token count. ASRMetrics keeps the reference's decode path:
+Copied from turkish_asr_tpu/utils/metrics.py (numpy only). The edit
+distance interns tokens to int32 ids and runs the port's native
+Levenshtein (``turkish_asr_torch.native.levenshtein_native``), or the
+two-row dynamic program when the library is unavailable. The reference
+computes WER/CER via the jiwer package (reference utils/metrics.py:48-50);
+``wer``/``cer`` implement the same corpus-level definition: total edit
+distance over all pairs divided by total reference token count. ASRMetrics keeps the reference's decode path:
 argmax -> tokenizer.ctc_decode for predictions; strip id==0 then plain
 decode for targets; any metric failure (e.g. empty references) yields
 1.0/1.0.
@@ -14,7 +15,7 @@ decode for targets; any metric failure (e.g. empty references) yields
 import numpy as np
 
 
-def _edit_distance(ref, hyp):
+def _levenshtein_dp(ref, hyp):
     """Levenshtein distance between two sequences (two-row DP)."""
     n, m = len(ref), len(hyp)
     if n == 0:
@@ -30,6 +31,19 @@ def _edit_distance(ref, hyp):
             curr[j] = min(prev[j] + 1, curr[j - 1] + 1, prev[j - 1] + cost)
         prev = curr
     return prev[m]
+
+
+def _edit_distance(ref, hyp):
+    """Levenshtein distance between two sequences: the native kernel on the
+    tokens interned to int32 ids, else the two-row DP. An empty sequence
+    returns before the native call, as in the JAX package."""
+    if len(ref) == 0 or len(hyp) == 0:
+        return len(ref) + len(hyp)
+    from turkish_asr_torch.native.loader import levenshtein_native
+    interned = {}
+    d = levenshtein_native([interned.setdefault(tok, len(interned)) for tok in ref],
+                           [interned.setdefault(tok, len(interned)) for tok in hyp])
+    return _levenshtein_dp(ref, hyp) if d is None else d
 
 
 def wer(references, hypotheses):

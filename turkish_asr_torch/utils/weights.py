@@ -28,8 +28,6 @@ import numpy as np
 import torch
 
 from turkish_asr_torch.models.conformer import ConformerCTC, ModelConfig
-from turkish_asr_torch.train.checkpoint import load_jax_checkpoint_file
-from turkish_asr_torch.train.optim import MultiSteps
 
 
 def _np(x):
@@ -250,6 +248,9 @@ def load_ckpt(path, device, n_heads=4):
 
     Returns (cfg, model): an eval-mode ConformerCTC on ``device`` loaded
     with ``strict=True``."""
+    # Imported here: the train package imports this module (trainer.py).
+    from turkish_asr_torch.train.checkpoint import load_jax_checkpoint_file
+
     ckpt = load_jax_checkpoint_file(path)
     mc = ckpt["meta"].get("model_config") or {}
     if not ckpt["params"]:
@@ -307,6 +308,8 @@ def _tree_like(template, named, prefix):
 
 def _adam_of(optimizer):
     """(the clip + AdamW optimizer, MultiSteps or None)."""
+    from turkish_asr_torch.train.optim import MultiSteps
+
     if isinstance(optimizer, MultiSteps):
         return optimizer.inner, optimizer
     return optimizer, None
