@@ -6,7 +6,11 @@ Phases; any failure raises and the script exits non-zero.
 1. Setup: prints the card's name and power limit (nvidia-smi), then builds
    every CUDA kernel from turkish_asr_torch/csrc with nvcc, one nvcc per
    source, all started together.
-2. Attention kernels: the flash-attention forward (with dropout 0 and 0.1)
+2. Attention kernels: first their SASS (cuobjdump -sass of the two
+   libraries): every function's HGMMA (wgmma), HMMA (mma.sync) and UTMALDG
+   (TMA load) count is printed, and a bf16 forward, dk/dv or dq instance
+   without HGMMA or UTMALDG fails the phase. Then the flash-attention
+   forward (with dropout 0 and 0.1)
    and backward against their plain PyTorch versions on the card, first at
    the main path's two shapes (training: B=32, T'=200, dropout 0.1; the
    long served bucket: B=16, T'=601; both bf16, H=4, Kh=1, D=64) and bench
@@ -20,8 +24,12 @@ Phases; any failure raises and the script exits non-zero.
    for bit, and its fp32 operands enter the tensor cores as bf16 hi + lo
    pairs). At the main-path shapes the kernels, their plain versions and
    torch's scaled_dot_product_attention (forward, and its gradient through
-   autograd) are timed over 20 chained calls, beside single-call medians
-   and each kernel's bound (kernel_bounds); so is the MHA shape with no
+   autograd; the names of the device kernels it ran, which say the backend
+   it chose) are timed over 20 chained calls, beside single-call medians
+   and each kernel's bound (kernel_bounds); the kernels through the same
+   calls, seed and order as turkish_asr_torch/scripts/ab_attention.py
+   (kernel_calls, time_calls), so the two report one number for a shape;
+   so is the MHA shape with no
    main-path launches (B=4, Kh=4, T'=801, rate 0, bf16, the A/B's), beside
    SDPA. The dropout dump kernel must be
    bit-identical to the plain hash at B=4, H=4, T'=801, at T' in
@@ -242,6 +250,7 @@ import time
 import types
 import urllib.request
 import uuid
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -417,19 +426,62 @@ def build_phase():
         print(f"  {_build.library_path(name, sources)}", flush=True)
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")  # wgmma, mma.sync, TMA tile loads
+SASS_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv", "flash_bwd_dq")  # the bf16 products' kernels
+
+
+def sass_counts(text):
+    """{function: {opcode: count}} of SASS_OPS in ``cuobjdump -sass`` text
+    (read as turkish_asr_torch/scripts/dump_floor.py reads it)."""
+    from turkish_asr_torch.scripts.dump_floor import parse_sass
+    return {name: {op: sum(1 for i in body if i.opcode == op) for op in SASS_OPS}
+            for name, body in parse_sass(text).items()}
+
+
+def wgmma_missing(counts):
+    """The bf16 forward, dk/dv and dq instances in ``counts`` without an
+    HGMMA (wgmma) or a UTMALDG (TMA load)."""
+    return [name for name, c in counts.items()
+            if "__nv_bfloat16" in name and any(k in name for k in SASS_KERNELS)
+            and (c["HGMMA"] == 0 or c["UTMALDG"] == 0)]
+
+
+def attention_sass():
+    """The attention libraries' SASS: for every function, its HGMMA, HMMA
+    and UTMALDG count; raises if a bf16 forward or backward instance has
+    no HGMMA or no UTMALDG."""
+    from turkish_asr_torch.ops import _build, flash_attention as fa
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    result = {}
+    for name, sources in (("flash_attention_fwd", fa.KERNEL_SOURCES),
+                          ("flash_attention_bwd", fa.BWD_SOURCES)):
+        text = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name, sources))],
+                              capture_output=True, text=True, check=True).stdout
+        counts = result[name] = sass_counts(text)
+        for fn, c in counts.items():
+            print(f"SASS {name} {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()),
+                  flush=True)
+        missing = wgmma_missing(counts)
+        if missing or not counts:
+            raise AssertionError(f"{name}: bf16 instances without wgmma or TMA loads: {missing}")
+    return result
+
+
 def attention_phase():
     """Forward (dropout 0 and 0.1) and backward kernels against the plain
-    versions, and the dump kernel against the plain hash."""
+    versions, and the dump kernel against the plain hash; first the
+    attention libraries' SASS (attention_sass)."""
     from turkish_asr_torch.ops import flash_attention as fa
     from turkish_asr_torch.ops._dropout import keep_mask_ref, keep_rows_ref
     from turkish_asr_torch.ops._flash_attention import (
         flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
-    from turkish_asr_torch.scripts.ab_attention import MAIN_PATH, SWEEP, attention_inputs
+    from turkish_asr_torch.scripts.ab_attention import (
+        MAIN_PATH, SWEEP, attention_inputs, kernel_calls, time_calls)
 
     gen = torch.Generator().manual_seed(0)
     B, H, D = SWEEP["B"], SWEEP["H"], SWEEP["D"]
     err = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
-    times = {}
+    times = {"sass": attention_sass()}
 
     def check(dtype, Kh, T, rate, out, lse, grads, ref_out, ref_lse, ref_grads):
         """(max |out - ref|, max |lse - ref|, grads' max error over their largest
@@ -467,8 +519,12 @@ def attention_phase():
         ref_grads = flash_attention_bwd_ref(q, k, v, mask, m, l, delta, g, rate, seed)
         err_o, err_l, err_g = check(torch.bfloat16, Km, T, rate, out, lse, grads, ref_out,
                                     ref_lse, ref_grads)
-        fwd = lambda: fa._fwd(q, k, v, mask, rate, seed)  # noqa: E731
-        bwd = lambda: fa._bwd(q, k, v, mask, m, l, delta, g, rate, seed)  # noqa: E731
+        # The kernels timed as ab_attention.py times them: the same calls
+        # (its seed), in the same order, before anything else runs here.
+        fwd, bwd = kernel_calls(fa, q, k, v, g, mask, rate)
+        timed = time_calls((fwd, bwd))  # chained fwd, bwd; device fwd, bwd
+        chained = dict(zip(("flash_attention_fwd", "flash_attention_bwd"), timed[:2]))
+        device = dict(zip(("flash_attention_fwd", "flash_attention_bwd"), timed[2:]))
         fwd_plain = lambda: flash_attention_fwd_stats_ref(q, k, v, mask, rate, seed)  # noqa: E731
         bwd_plain = lambda: flash_attention_bwd_ref(  # noqa: E731
             q, k, v, mask, m, l, delta, g, rate, seed)
@@ -476,10 +532,11 @@ def attention_phase():
         row = {}
         for kname, kernel, plain, library in (("flash_attention_fwd", fwd, fwd_plain, lib[0]),
                                               ("flash_attention_bwd", bwd, bwd_plain, lib[1])):
-            (ms, chained), (plain_ms, plain_chained) = _times(kernel), _times(plain)
-            row[kname] = dict(ms=ms, chained_ms=chained, median_ms=_median_ms(kernel),
-                              plain_ms=plain_ms, plain_chained_ms=plain_chained,
-                              library_ms=library[0], library_chained_ms=library[1],
+            plain_ms, plain_chained = _times(plain)
+            row[kname] = dict(ms=device[kname], chained_ms=chained[kname],
+                              median_ms=_median_ms(kernel), plain_ms=plain_ms,
+                              plain_chained_ms=plain_chained, library_ms=library[0],
+                              library_chained_ms=library[1], library_kernels=library[2],
                               **kernel_bounds(kname, B=Bm, H=Hm, Kh=Km, T=T, D=Dm))
         times[where] = row
         del q, k, v, g, mask, out, lse, m, l, delta, grads, ref_out, ref_lse, ref_grads
@@ -491,7 +548,8 @@ def attention_phase():
             print(f"  {kname} (device ms; {CHAINED_CALLS} chained calls): kernel {r['ms']:.4f} "
                   f"({r['chained_ms']:.4f}; single {r['median_ms']:.4f}), plain "
                   f"{r['plain_ms']:.4f} ({r['plain_chained_ms']:.4f}), torch SDPA "
-                  f"{r['library_ms']:.4f} ({r['library_chained_ms']:.4f}); bound "
+                  f"{r['library_ms']:.4f} ({r['library_chained_ms']:.4f}; "
+                  f"{', '.join(r['library_kernels'])}); bound "
                   f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['flops'] / 1e9:.3f} GFLOP, "
                   f"{r['bytes'] / 1e6:.3f} MB)", flush=True)
 
@@ -511,13 +569,13 @@ def attention_phase():
         (ms, chained), (plain_ms, plain_chained) = _times(kernel), _times(plain)
         r = times["mha"][kname] = dict(
             ms=ms, chained_ms=chained, plain_ms=plain_ms, plain_chained_ms=plain_chained,
-            library_ms=library[0], library_chained_ms=library[1],
+            library_ms=library[0], library_chained_ms=library[1], library_kernels=library[2],
             **kernel_bounds(kname, B=B, H=H, Kh=H, T=T, D=D))
         print(f"attention MHA bf16 B={B} H={H} Kh={H} T'={T} D={D} rate=0 {kname} (device ms; "
               f"chained): kernel {r['ms']:.4f} ({r['chained_ms']:.4f}), plain {r['plain_ms']:.4f} "
               f"({r['plain_chained_ms']:.4f}), torch SDPA {r['library_ms']:.4f} "
-              f"({r['library_chained_ms']:.4f}); bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}", flush=True)
+              f"({r['library_chained_ms']:.4f}; {', '.join(r['library_kernels'])}); bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
     del q, k, v, g, mask, out
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -601,9 +659,11 @@ def attention_phase():
 
 
 def _sdpa_yardstick(q, k, v, mask, g, rate):
-    """((device ms, chained ms) of the forward, the same of the backward) of
-    torch's fused attention on the kernels' inputs: the library yardstick,
-    timed here and never called by the port. MQA k/v go in with
+    """((device ms, chained ms, its device kernels) of the forward, the same
+    of the backward) of torch's fused attention on the kernels' inputs: the
+    library yardstick, timed here and never called by the port. The
+    kernels (by torch.profiler, the longest first) name the backend SDPA
+    chose (a padding mask rules out its FlashAttention backend). MQA k/v go in with
     enable_gqa=True, or expanded to the query heads (a view) where this
     torch's SDPA has no such keyword. Every row gets a valid key (SDPA
     gives NaN for a row with none; only its time is used)."""
@@ -623,10 +683,16 @@ def _sdpa_yardstick(q, k, v, mask, g, rate):
                 qq, kk.expand(-1, H, -1, -1), vv.expand(-1, H, -1, -1), attn_mask=attn_mask,
                 dropout_p=rate)
 
+    from turkish_asr_torch.scripts.ab_attention import kernel_split
+
+    def timed(fn):
+        split = sorted(kernel_split(fn).items(), key=lambda kv: -kv[1])[:3]
+        return (*_times(fn), [re.split(r"[<(]", name)[0].strip() for name, _ in split])
+
     with torch.no_grad():
-        fwd = _times(call)
+        fwd = timed(call)
     out, g16 = call(), g.to(q.dtype)
-    bwd = _times(lambda: torch.autograd.grad(out, (qq, kk, vv), g16, retain_graph=True))
+    bwd = timed(lambda: torch.autograd.grad(out, (qq, kk, vv), g16, retain_graph=True))
     return fwd, bwd
 
 
@@ -2707,6 +2773,7 @@ def main():
     times["flash_attention_fwd"] = times["train"]["flash_attention_fwd"]
     times["flash_attention_bwd"] = times["train"]["flash_attention_bwd"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "chained_ms")
+    attention_keys = keys + ("library_kernels",)
     kernels = []
     for name, (tpu, source) in replaces.items():
         t = times[name]
@@ -2718,9 +2785,11 @@ def main():
         if name == "dropout_mask":
             entry["on_main_path"] = False  # a test helper, as the TPU's dump_keep_mask
         if name in ("flash_attention_fwd", "flash_attention_bwd"):
-            entry["mha"] = {k: times["mha"][name][k] for k in keys}
-            entry["longform"] = {w: {k: times[w][name][k] for k in keys}
+            entry["library_kernels"] = t["library_kernels"]
+            entry["mha"] = {k: times["mha"][name][k] for k in attention_keys}
+            entry["longform"] = {w: {k: times[w][name][k] for k in attention_keys}
                                  for w in LONGFORM_ATTENTION}
+            entry["sass"] = times["sass"][name]
         if name in ("flash_attention_fwd", "flash_attention_bwd", "ctc_fwd", "ctc_bwd"):
             # each bench configuration's launches (BENCH_CAP iterations)
             entry["bench_launches"] = {cfg: n[name] for cfg, n in bench["launches"].items()}

@@ -1,12 +1,13 @@
 """Why the attention backward kernel splits its fp32 operands.
 
 ``csrc/flash_attention_bwd.cu`` runs its five products on the bf16 tensor
-cores, while ``_bwd_tile`` (turkish_asr_tpu/ops/_flash_attention_impl.py
+cores (wgmma), while ``_bwd_tile`` (turkish_asr_tpu/ops/_flash_attention_impl.py
 :317-374) and the plain version take every product on fp32 operands (g, ds
 and y are fp32). The kernel carries g, ds and y, and fp32 q, k, v, as bf16
-parts (``csrc/flash_mma.cuh``): pairs x = hi + lo, two mma terms against a
+parts (``csrc/flash_wgmma.cuh``): pairs x = hi + lo, two terms against a
 bf16 operand (hi*b + lo*b), three against another pair (hi*hi + hi*lo +
-lo*hi); g (and fp32 v) in three parts for dp = g v^T. This models that
+lo*hi); g (and fp32 v) in three parts for dp = g v^T; ds goes to the dq
+product as the same pair. This models that
 arithmetic on the CPU: every operand rounded to bf16 values first, each
 partial product exact, the sums fp32, the forward's m, l and delta from the
 same model. The split holds dq, dk, dv within 1e-4 of the largest gradient
@@ -42,7 +43,7 @@ def _parts(x, n):
 def _matmul(a, b, na, nb):
     """a @ b from na and nb bf16 terms, each partial product exact in fp32,
     over the pairs of terms (i, j) with i + j < max(na, nb), as the kernel's
-    mma_parts: two pairs give hi*hi + hi*lo + lo*hi."""
+    products_ss and products_rs: two pairs give hi*hi + hi*lo + lo*hi."""
     pa, pb = _parts(a, na), _parts(b, nb)
     top = max(na, nb) - 1
     return sum(torch.matmul(pa[i], pb[j]) for i in range(na) for j in range(nb) if i + j <= top)

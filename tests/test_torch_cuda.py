@@ -11,8 +11,8 @@ to bf16, with row sums in another order) and 1e-3 on lse. The backward
 kernels rebuild the forward's p bit for bit and carry the fp32 operands
 (g, ds, y, and q, k, v in fp32) through the bf16 tensor cores as hi + lo
 pairs, so dq, dk, dv agree within 1e-4 of the largest gradient for both
-input dtypes; the dk/dv partial sums are added in a fixed order, so two
-calls agree bit for bit. The CTC kernels run the plain
+input dtypes; the dk/dv partial sums are added in a fixed order and dq
+is one block's sum, so two calls agree bit for bit. The CTC kernels run the plain
 version's fp32 recursion with the card's own exp/log1p: losses within
 1e-5 relative, gradients within 1e-5 absolute (lane sums in another
 order) on the small cases, and chip_smoke.py's tolerances (nll 1e-5
@@ -186,8 +186,9 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, B, Kh, T, D, rate):
 @pytest.mark.parametrize("B,Kh,T,rate", [(4, 1, 801, 0.0), (4, 4, 801, 0.0), (32, 1, 200, 0.1)])
 def test_backward_kernel_is_deterministic(cuda, B, Kh, T, rate):
     """Two backward calls on the same inputs give the same bits: the dk/dv
-    chunks are summed in a fixed order, with no atomics (MQA at B=4, T'=801
-    takes five chunks, at B=32, T'=200 two)."""
+    chunks are summed in a fixed order and dq is one block's sum over the
+    key tiles, with no atomics (MQA at B=4, T'=801 takes four chunks, at
+    B=32, T'=200 two)."""
     q, k, v, mask = _inputs(B, 4, Kh, T, 64, _lengths(B, T), torch.bfloat16, cuda)
     g = torch.randn(B, 4, T, 64, generator=torch.Generator().manual_seed(5)).to(cuda)
     _, _, m, l = fa_ops._fwd(q, k, v, mask, rate, 3)
@@ -245,32 +246,44 @@ def test_exported_program_launches_the_kernel(cuda, tmp_path):
 @pytest.mark.parametrize("B,H,Kh,T", [(4, 4, 1, 801), (4, 4, 4, 801), (32, 4, 1, 200),
                                       (16, 4, 1, 601), (3, 2, 2, 9), (1, 4, 1, 1)])
 def test_dkdv_chunks_cover_the_rows(B, H, Kh, T, slots):
-    """The dk/dv split (pure shape logic, runs without a card): chunks of a
-    whole number of 64-row tiles, none empty, covering every row."""
-    chunks, chunk_rows = fa_ops.dkdv_chunks(B, H, Kh, T, slots)
+    """The dk/dv split of ``attention_plan`` (pure shape logic, runs
+    without a card): chunks of a whole number of 64-row tiles, none empty,
+    covering every row, for both dtypes' blocks."""
     rows = H * T if Kh == 1 else T
-    assert chunk_rows % 64 == 0 and chunks >= 1
-    assert (chunks - 1) * chunk_rows < rows <= chunks * chunk_rows
+    for fp32 in (False, True):
+        plan = fa_ops.attention_plan(B, H, Kh, T, 64, fp32, slots)
+        assert plan.chunk_rows % 64 == 0 and plan.chunks >= 1
+        assert (plan.chunks - 1) * plan.chunk_rows < rows <= plan.chunks * plan.chunk_rows
+        assert plan.dkdv_grid == (-(-T // plan.block_rows), plan.chunks, B * Kh)
+
+
+def _chunks(*shape):
+    plan = fa_ops.attention_plan(*shape)
+    return plan.chunks, plan.chunk_rows
 
 
 def test_dkdv_chunks_at_the_main_path_shapes():
-    """At 264 slots (the H100's 132 SMs x the 2 blocks an SM of the bf16
-    D=64 instance, test_dkdv_occupancy_of_the_main_path_instance): training
-    (B=32, T'=200, MQA) takes two chunks of 7 row tiles, one wave of 256
-    blocks; B=4, T'=801: five MQA chunks (260 blocks), and MHA none (208)."""
-    assert fa_ops.dkdv_chunks(32, 4, 1, 200, 264) == (2, 7 * 64)
-    assert fa_ops.dkdv_chunks(4, 4, 1, 801, 264) == (5, 11 * 64)
-    assert fa_ops.dkdv_chunks(4, 4, 4, 801, 264) == (1, 13 * 64)
+    """At 132 slots (the H100's 132 SMs x the one block an SM of the bf16
+    D=64 dk/dv instance, test_dkdv_occupancy_of_the_main_path_instance;
+    128 keys a block): training (B=32, T'=200, MQA) takes two chunks of 7
+    row tiles, one wave of 128 blocks; B=4, T'=801: four MQA chunks of 13
+    (112 blocks), and MHA none (112); config 5's B=4, T'=1601: five
+    chunks of 41 (260 blocks, two waves)."""
+    assert _chunks(32, 4, 1, 200, 64, False, 132) == (2, 7 * 64)
+    assert _chunks(4, 4, 1, 801, 64, False, 132) == (4, 13 * 64)
+    assert _chunks(4, 4, 4, 801, 64, False, 132) == (1, 13 * 64)
+    assert _chunks(4, 8, 1, 1601, 64, False, 132) == (5, 41 * 64)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0, 1])
 def test_dkdv_occupancy_of_the_main_path_instance(cuda, dropout):
-    """The bf16 D=64 dk/dv instance fits two blocks an SM (its 255
-    registers a thread and 92 KB of shared memory a block): the slots the
-    main-path splits above assume."""
+    """The bf16 D=64 dk/dv instance takes one block an SM (two consumer
+    warpgroups and a producer, 168 registers a thread at launch): the
+    slots the main-path splits above assume. The fp32 D=128 instance (one
+    consumer warpgroup) takes one or two."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert fa_ops._dkdv_slots(cuda.index or 0, 64, 1, dropout) == 2 * sms
+    assert fa_ops._dkdv_slots(cuda.index or 0, 64, 1, dropout) == sms
     assert 1 <= fa_ops._dkdv_slots(cuda.index or 0, 128, 0, dropout) <= 2 * sms
 
 

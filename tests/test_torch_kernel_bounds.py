@@ -66,10 +66,53 @@ def test_unknown_kernel_is_refused():
 
 
 def test_ab_attention_shapes_cover_the_attention_phase_and_the_main_path():
+    """The sweep, the main path's two shapes and bench config 5's two
+    (chip_smoke's LONGFORM_ATTENTION), so the parent/change A/B covers
+    T'=1601."""
     labels = [label for label, _ in ab_attention._shapes()]
-    assert len(labels) == 2 * 2 * 4 * 2 + 2
+    assert len(labels) == 2 * 2 * 4 * 2 + 2 + 2
     shapes = dict(ab_attention._shapes())
     assert shapes["main path train: bf16 B=32 Kh=1 T'=200 rate=0.1"]["B"] == 32
+    assert ab_attention.LONGFORM == chip_smoke.LONGFORM_ATTENTION
+    for where, shp in chip_smoke.LONGFORM_ATTENTION.items():
+        got = shapes[f"main path {where}: bf16 B={shp['B']} Kh=1 T'=1601 rate={shp['rate']}"]
+        assert got == dict(shp, dtype=got["dtype"]) and str(got["dtype"]) == "torch.bfloat16"
+
+
+ATTENTION_SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64ELb0EEEv14CUtensorMap_st
+        /*0000*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0020*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;
+        /*0030*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_114flash_bwd_dkdvI13__nv_bfloat16Li64ELb1EEEv14CUtensorMap_st
+        /*0000*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_112flash_bwd_dqIfLi64EEEv14CUtensorMap_stS1_NS_6ParamsE
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_120flash_bwd_sum_chunksEPK6float4PS0_S3_im
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_attention_sass_counts_wgmma_mma_and_tma_loads():
+    """chip_smoke's SASS check on a made-up disassembly: HGMMA, HMMA and
+    UTMALDG by function, their modifiers dropped."""
+    counts = chip_smoke.sass_counts(ATTENTION_SASS)
+    assert list(counts.values()) == [{"HGMMA": 2, "HMMA": 0, "UTMALDG": 1},
+                                     {"HGMMA": 0, "HMMA": 1, "UTMALDG": 1},
+                                     {"HGMMA": 0, "HMMA": 1, "UTMALDG": 0},
+                                     {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0}]
+
+
+def test_attention_sass_check_names_bf16_instances_without_wgmma():
+    """Only bf16 forward, dk/dv and dq instances must hold wgmma and TMA
+    loads: the fp32 dq and the chunk sum are not held to it."""
+    missing = chip_smoke.wgmma_missing(chip_smoke.sass_counts(ATTENTION_SASS))
+    assert missing == ["_ZN12_GLOBAL__N_114flash_bwd_dkdvI13__nv_bfloat16Li64ELb1EEEv14CUtensorMap_st"]
 
 
 def test_ab_attention_needs_a_card(monkeypatch):
@@ -155,6 +198,16 @@ def test_dump_floor_needs_a_card(monkeypatch):
         dump_floor.main(["4", "4", "801", "1", "1", "46341"])
     with pytest.raises(SystemExit):
         dump_floor.main(["4", "4"])  # shapes come as triples
+
+
+def test_ab_attention_host_mode_needs_a_card(monkeypatch):
+    """``--host`` times the wrappers on the card; its shape's kernels are
+    small (one block a batch row and key tile)."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        ab_attention.main(["--host"])
+    assert ab_attention.HOST_SHAPE["B"] * ab_attention.HOST_SHAPE["T"] <= 128
 
 
 def test_ab_attention_dump_needs_a_card(monkeypatch):

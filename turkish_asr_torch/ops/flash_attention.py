@@ -18,9 +18,11 @@ directly; with them, ``torch.autograd.Function`` ``FlashAttention``,
 whose forward calls the op and saves q, k, v, mask, out, the softmax's
 row max and sum, and the dropout seed; its backward takes delta =
 rowsum(g * out) in PyTorch, as the TPU package takes it outside its
-kernel, and runs the backward kernels. The backward's
-dk/dv kernel splits the query rows into chunks (``dkdv_chunks``) whose
-partial sums go to an fp32 scratch the wrapper allocates.
+kernel, and runs the backward kernels. ``attention_plan`` is the
+kernels' launch arithmetic (tile rows, ring stages, the dk/dv kernel's
+chunks of query rows and every grid); the wrapper allocates their
+scratch: the chunks' fp32 partial dk/dv and the bf16 ds that the dq
+kernel reads.
 
 Attention-weight dropout (training) is applied inside the kernels from a
 position hash (``_dropout.py``, ``csrc/dropout_hash.cuh``) keyed by
@@ -35,7 +37,7 @@ dump kernel's.
 import ctypes
 import functools
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -74,13 +76,14 @@ def load_kernel():
     """The forward kernel's C entry point, building the library at first use."""
     return _entry_point("flash_attention_fwd", KERNEL_SOURCES, "flash_attention_fwd",
                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+                        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float] + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p])
 
 
 def load_bwd_kernel():
     """The backward kernels' C entry point, building the library at first use."""
     return _entry_point("flash_attention_bwd", BWD_SOURCES, "flash_attention_bwd",
-                        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+                        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 13
                         + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
 
 
@@ -140,30 +143,62 @@ def _dropout_args(rate, seed):
             1.0 / (1.0 - rate))
 
 
-DKDV_TILE = 64  # query rows (and keys) of the dk/dv kernel's tiles
+TILE = 64  # rows of a query or key tile: one consumer warpgroup's (csrc/flash_wgmma.cuh)
+GROUPS = 2  # consumer warpgroups of a bf16 block (fp32: one)
 
 
-def dkdv_chunks(B, H, Kh, T, slots):
-    """(chunks, chunk_rows): how the backward's dk/dv kernel splits the
-    query rows of a kv head (H*T folded rows for MQA, T for MHA) among
-    blocks. Its grid is key tiles x chunks x B*Kh, of which the card holds
-    ``slots`` at once (SMs x blocks an SM, ``_dkdv_slots``); a block
-    stages its K/V tile, walks its chunk's row tiles and writes its dk/dv,
-    so the grid takes about waves x (row tiles a chunk + 1) tile-steps. The
-    split with the fewest of those wins, the fewer chunks on a tie (each
-    adds a partial dk/dv to sum).
-    chunk_rows is a multiple of DKDV_TILE; no chunk is empty."""
+class AttentionPlan(NamedTuple):
+    """The launches of the attention kernels (``attention_plan``)."""
+    block_rows: int   # query rows of a forward or dq block; keys of a dk/dv block
+    fwd_stages: int   # K/V tiles in the forward's ring
+    fwd_grid: tuple   # (row blocks, 1, B * Kh)
+    bwd_stages: int   # Q/G tiles in the dk/dv kernel's ring
+    chunks: int       # runs of query rows the dk/dv grid splits a kv head's rows into
+    chunk_rows: int   # rows of each run but the last: a multiple of TILE
+    dkdv_grid: tuple  # (key blocks, chunks, B * Kh)
+    dq_grid: tuple    # (row blocks, 1, B * Kh)
+    pitch: int        # elements between rows of the backward's ds scratch
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(B, H, Kh, T, D, fp32, slots):
+    """How ``csrc/flash_attention_fwd.cu`` and ``flash_attention_bwd.cu``
+    launch for q (B, H, T, D) and k, v (B, Kh, T, D), bf16 or ``fp32``, on a
+    card that holds ``slots`` dk/dv blocks at once (SMs x blocks an SM,
+    ``_dkdv_slots``; the forward's numbers do not depend on it, and the
+    forward passes 1). The kernels take every number from here and refuse
+    a plan that is not their instance's or a grid that does not cover its
+    rows.
+
+    A block holds GROUPS consumer warpgroups of TILE rows (one for fp32,
+    whose bf16 parts fill shared memory), so block_rows query rows
+    (forward, dq) or keys (dk/dv). The rows of a kv head are H*T folded
+    rows for MQA and T for MHA. The forward's ring has two stages; the
+    dk/dv kernel's two for bf16 at D <= 64 and one otherwise (shared
+    memory). The dk/dv grid is key blocks x chunks x B*Kh: a block stages
+    its K/V, walks its chunk's row tiles and writes its dk/dv, so the grid
+    takes about waves x (row tiles a chunk + 1) tile-steps; the split with
+    the fewest of those wins, the fewer chunks on a tie (each adds a
+    partial dk/dv to sum). No chunk is empty. The backward's ds scratch
+    keeps each key's rows ``pitch`` elements apart: the rows rounded up to
+    8 (16 bytes, as TMA needs). Cached: a launch pays for one dictionary
+    lookup."""
+    block = TILE * (1 if fp32 else GROUPS)
     rows = H * T if Kh == 1 else T
-    row_tiles = -(-rows // DKDV_TILE)
-    base = -(-T // DKDV_TILE) * B * Kh
+    row_tiles = -(-rows // TILE)
+    key_blocks = -(-T // block)
     best = None
     for want in range(1, row_tiles + 1):
         per = -(-row_tiles // want)
         chunks = -(-row_tiles // per)
-        cost = -(-base * chunks // slots) * (per + 1)
+        cost = -(-key_blocks * B * Kh * chunks // slots) * (per + 1)
         if best is None or cost < best[0]:
-            best = (cost, chunks, per * DKDV_TILE)
-    return best[1], best[2]
+            best = (cost, chunks, per * TILE)
+    _, chunks, chunk_rows = best
+    row_blocks = -(-rows // block)
+    return AttentionPlan(block, 2, (row_blocks, 1, B * Kh), 2 if not fp32 and D <= 64 else 1,
+                         chunks, chunk_rows, (key_blocks, chunks, B * Kh),
+                         (row_blocks, 1, B * Kh), -(-rows // 8) * 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -212,11 +247,13 @@ def _fwd_cuda(q, k, v, mask, rate, seed):
     out = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
     lse, row_max, row_sum = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
                              for _ in range(3))
+    plan = attention_plan(B, H, k.shape[1], T, D, q.dtype == torch.float32, 1)
     fn = load_kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
                 B, H, k.shape[1], T, D, _DTYPE_CODE[q.dtype], *_dropout_args(rate, seed),
+                plan.block_rows, plan.fwd_stages, plan.fwd_grid[0],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {rc}")
@@ -252,17 +289,19 @@ def _bwd(q, k, v, mask, row_max, row_sum, delta, g, rate, seed):
     dq = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty((2, B, Kh, T, D), dtype=torch.float32, device=q.device).unbind(0)
     dropout, seed, threshold, inv_keep = _dropout_args(rate, seed)
-    chunks, chunk_rows = dkdv_chunks(
-        B, H, Kh, T, _dkdv_slots(q.device.index, D, _DTYPE_CODE[q.dtype], dropout))
-    partial = (torch.empty((2, chunks, B, Kh, T, D), dtype=torch.float32, device=q.device)
-               if chunks > 1 else None)
+    plan = attention_plan(B, H, Kh, T, D, q.dtype == torch.float32,
+                          _dkdv_slots(q.device.index, D, _DTYPE_CODE[q.dtype], dropout))
+    partial = (torch.empty((2, plan.chunks, B, Kh, T, D), dtype=torch.float32, device=q.device)
+               if plan.chunks > 1 else None)
+    ds = torch.empty((2 * B * Kh * T * plan.pitch,), dtype=torch.bfloat16, device=q.device)
     fn = load_bwd_kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), g.data_ptr(),
                 row_max.data_ptr(), row_sum.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), None if partial is None else partial.data_ptr(),
-                B, H, Kh, T, D, _DTYPE_CODE[q.dtype], dropout, chunks, chunk_rows, seed,
-                threshold, inv_keep, torch.cuda.current_stream(q.device).cuda_stream)
+                ds.data_ptr(), B, H, Kh, T, D, _DTYPE_CODE[q.dtype], dropout, plan.chunks,
+                plan.chunk_rows, plan.block_rows, plan.bwd_stages, plan.dq_grid[0], plan.pitch,
+                seed, threshold, inv_keep, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed with CUDA error {rc}")
     _count(flash_attention, "launches_bwd")

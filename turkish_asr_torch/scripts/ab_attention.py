@@ -3,7 +3,7 @@ profiles the main path's attention share.
 
 Usage (by path, so that ``--root`` picks the package it times):
 
-    python turkish_asr_torch/scripts/ab_attention.py [--root DIR] [--profile | --dump | --served]
+    python turkish_asr_torch/scripts/ab_attention.py [--root DIR] [--profile | --dump | --host | --served]
 
 ``--root`` is the root of a checkout of this repository (default: the one
 this file is in); its ``turkish_asr_torch`` is imported and its kernels are
@@ -18,9 +18,12 @@ the host's gaps where the wrapper's Python outlasts the kernel), and each
 as device time per call: the same 20 calls queued behind a spin kernel,
 so that the events time the kernels back to back. The shapes
 are chip_smoke.py's attention phase (B=4, H=4, D=64, T' in {26, 201,
-601, 801}, Kh in {1, 4}, bf16 and fp32, dropout 0 and 0.1) and the main
+601, 801}, Kh in {1, 4}, bf16 and fp32, dropout 0 and 0.1), the main
 path's two (training B=32, T'=200, dropout 0.1; the long served bucket
-B=16, T'=601; bf16 MQA). The last line is a JSON object of all times.
+B=16, T'=601; bf16 MQA) and bench config 5's two (LONGFORM: H=8, T'=1601,
+B=16 and B=4 with dropout 0.1). chip_smoke.py times the main-path and
+config 5 shapes with the same calls (``kernel_calls``) in the same order
+(``time_calls``). The last line is a JSON object of all times.
 
 With ``--dump`` it times the dropout-mask dump instead
 (``ops/flash_attention.py::dump_keep_mask``, ``csrc/dropout_mask.cu``) at
@@ -37,6 +40,11 @@ ended by a synchronize), and under ``torch.profiler`` over 5 of them the
 kernel launches, the device time, the attention kernels' device time and
 share, and the device-busy share (device time over the profiled wall).
 It needs a CUDA card and raises without one.
+
+With ``--host`` it times the wrappers' host cost: µs a call of the
+forward and the backward enqueued back to back at HOST_SHAPE, where the
+card finishes each call before the host has queued the next (the plan,
+allocations, the ctypes call, the tensor maps' encoding, the launches).
 
 With ``--served`` it times the served forward (log-mel + the flagship
 model in bf16 under ``torch.inference_mode``, as ``ASRInference`` runs it,
@@ -65,6 +73,12 @@ import torch
 SWEEP = dict(B=4, H=4, D=64, T=(26, 201, 601, 801), Kh=(1, 4), rate=(0.0, 0.1))
 MAIN_PATH = {"train": dict(B=32, H=4, Kh=1, T=200, D=64, rate=0.1),
              "serve": dict(B=16, H=4, Kh=1, T=601, D=64, rate=0.0)}
+# bench config 5's two (turkish_asr_torch/bench.py; chip_smoke.LONGFORM_ATTENTION):
+# Conformer-L, 8 heads MQA, D=64, at 64 s (T'=1601): the long-form forward's
+# B=16, and the training step's B=4 with dropout 0.1.
+LONGFORM = {"longform_serve": dict(B=16, H=8, Kh=1, T=1601, D=64, rate=0.0),
+            "longform_train": dict(B=4, H=8, Kh=1, T=1601, D=64, rate=0.1)}
+SEED = 5  # the dropout seed of the timed calls, here and in chip_smoke.py
 CALLS = 20
 DUMP_SHAPES = ((4, 4, 801), (1, 1, 46341))  # (B, H, T'): the attention phase's; past 2^31 bytes
 ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_")  # in the attention kernels' names
@@ -94,7 +108,7 @@ def _shapes():
                     yield (f"{str(dtype)[6:]} B={SWEEP['B']} Kh={Kh} T'={T} rate={rate}",
                            dict(B=SWEEP["B"], H=SWEEP["H"], Kh=Kh, T=T, D=SWEEP["D"],
                                 rate=rate, dtype=dtype))
-    for where, shp in MAIN_PATH.items():
+    for where, shp in {**MAIN_PATH, **LONGFORM}.items():
         yield (f"main path {where}: bf16 B={shp['B']} Kh={shp['Kh']} T'={shp['T']} "
                f"rate={shp['rate']}", dict(shp, dtype=torch.bfloat16))
 
@@ -209,24 +223,37 @@ def attention_inputs(B, H, Kh, T, D, dtype):
     return q, k, v, g, mask
 
 
+def kernel_calls(fa, q, k, v, g, mask, rate, seed=SEED):
+    """The forward call and the backward call that this script and
+    chip_smoke.py time: the backward on the forward's m and l and on delta
+    = rowsum(g * out), g fp32 as the autograd Function passes it."""
+    out, _, m, l = fa._fwd(q, k, v, mask, rate, seed)
+    delta = (g * out).sum(-1)
+    return (lambda: fa._fwd(q, k, v, mask, rate, seed),
+            lambda: fa._bwd(q, k, v, mask, m, l, delta, g, rate, seed))
+
+
+def time_calls(calls):
+    """[chained ms of each call, then device ms of each], in that order."""
+    return [chained_ms(fn) for fn in calls] + [device_ms(fn) for fn in calls]
+
+
 def kernel_times(fa):
     """{shape label: (forward ms, backward ms, forward device ms, backward
     device ms)} of the checkout's kernels."""
     result = {}
     for label, s in _shapes():
         q, k, v, g, mask = attention_inputs(*(s[k] for k in ("B", "H", "Kh", "T", "D", "dtype")))
-        rate = s["rate"]
-        out, _, m, l = fa._fwd(q, k, v, mask, rate, 5)
-        delta = (g * out).sum(-1)
-        calls = (lambda: fa._fwd(q, k, v, mask, rate, 5),
-                 lambda: fa._bwd(q, k, v, mask, m, l, delta, g, rate, 5))
-        result[label] = [chained_ms(fn) for fn in calls] + [device_ms(fn) for fn in calls]
+        calls = kernel_calls(fa, q, k, v, g, mask, s["rate"])
+        result[label] = time_calls(calls)
         print("{}: forward {:.4f} ms, backward {:.4f} ms; device forward {:.4f} ms, backward "
               "{:.4f} ms".format(label, *result[label]), flush=True)
         if label.startswith("main path"):
             print("  by kernel (profiler): " + ", ".join(
                 f"{name} {ms:.4f}" for fn in calls for name, ms in kernel_split(fn).items()),
                 flush=True)
+        del q, k, v, g, mask, calls
+        torch.cuda.empty_cache()
     return result
 
 
@@ -327,6 +354,34 @@ def profile_main_path():
     return {"train": train, "serve": serve}
 
 
+HOST_SHAPE = dict(B=1, H=4, Kh=1, T=64, D=64)  # a shape whose kernels take less than the host
+
+
+def host_times(fa, calls=200, repeats=5):
+    """{"forward", "backward": host µs a call}: the wrapper's cost on the
+    host (shape checks, the plan, allocations, the ctypes call, the C
+    entry point's tensor-map encoding and launch), the median over
+    ``repeats`` of ``calls`` calls enqueued back to back at HOST_SHAPE
+    (bf16, rate 0.1), each repeat after a synchronize."""
+    q, k, v, g, mask = attention_inputs(*HOST_SHAPE.values(), torch.bfloat16)
+    result = {}
+    for name, fn in zip(("forward", "backward"), kernel_calls(fa, q, k, v, g, mask, 0.1)):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - start) * 1e6 / calls)
+        result[name] = statistics.median(times)
+        print(f"host {name} at {HOST_SHAPE}: {result[name]:.2f} us a call (median of {repeats} "
+              f"x {calls})", flush=True)
+    torch.cuda.synchronize()
+    return result
+
+
 def served_forward_times():
     """Wall ms (median of 10) of the served bf16 forward at B=1 x 8 s and
     B=16 x 24 s."""
@@ -362,6 +417,8 @@ def main(argv=None):
                       help="profile a training step and a long served forward instead")
     mode.add_argument("--dump", action="store_true",
                       help="time the dropout-mask dump kernel instead")
+    mode.add_argument("--host", action="store_true",
+                      help="time the wrappers' host cost a call at a small shape instead")
     mode.add_argument("--served", action="store_true",
                       help="time the served forward at B=1 x 8 s and B=16 x 24 s instead")
     args = parser.parse_args(argv)
@@ -379,6 +436,8 @@ def main(argv=None):
     print(f"{torch.cuda.get_device_name(0)}; checkout {root}", flush=True)
     if args.profile:
         key, result = "profile", profile_main_path()
+    elif args.host:
+        key, result = "host", host_times(fa)
     elif args.served:
         key, result = "served", served_forward_times()
     else:
