@@ -62,18 +62,22 @@ Phases; any failure raises and the script exits non-zero.
    through autograd; the device kernels one ctc_loss forward and one
    backward launch are printed. The kernels' branch-free log1p must equal
    the math library's log1pf bit for bit on every float in [0, 1].
-4. SwiGLU: the port's A/B (turkish_asr_torch/scripts/ab_swiglu.py, the
-   fused SwiGLU FFN kernel against the matmul chain) at M in {6400,
-   6401, 25600}, C=256, F=1024, then the kernel at every row tile against
-   the fused plain version on the A/B's inputs with seeded nonzero
-   biases, and at SWIGLU_EDGES (its copy paths' edges and every cluster
-   size the plan picks, which must all run), into an output
-   buffer the allocator last held as NaN: every row finite, max|kernel -
-   plain| <= 2^-7 max|plain| (both sum fp32 products of bf16 values in
-   other orders, so g can round one bf16 ulp apart). At M=6400 two calls
-   must be bit-identical and a call must launch one device kernel, the
-   SwiGLU kernel. Median CUDA-event times of the kernel, the fused plain
-   version and the chain at each M.
+4. SwiGLU: first the library's SASS and ptxas report: every instance
+   holds HGMMA (wgmma) and no HMMA (mma.sync), every TMA instance
+   UTMALDG, and no instance spills. Then the port's A/B
+   (turkish_asr_torch/scripts/ab_swiglu.py, the fused SwiGLU FFN kernel
+   against the matmul chain and cuBLAS's two products) at SWIGLU_SHAPES:
+   C=256, F=1024 at M in {6400, 6401, 25600}, Conformer-L's C=512,
+   F=2048 at M in {6404, 25616}; then the kernel at every row tile that
+   takes C against the fused plain version on the A/B's inputs with
+   seeded nonzero biases, and at SWIGLU_EDGES (the copy path's edges, C
+   near 512, and every F split the plan picks, which must all run), into
+   an output buffer the allocator last held as NaN: every row finite,
+   max|kernel - plain| <= 2^-7 max|plain| (both sum fp32 products of bf16
+   values in other orders, so g can round one bf16 ulp apart). At each
+   width's first shape two calls must be bit-identical and a call must
+   launch one device kernel, the SwiGLU kernel. Median CUDA-event times
+   of the kernel, the fused plain version and the chain at each shape.
 5. Training: a synthetic corpus (tones with character transcripts, 1-8 s)
    trained through turkish_asr_torch.main at flagship width (80 mels,
    d_model 256, 4 heads MQA, 8 blocks, char tokenizer, dropout 0.1,
@@ -257,14 +261,19 @@ import numpy as np
 import torch
 
 SR = 16000
-SWIGLU_SHAPES = dict(M=(6400, 6401, 25600), C=256, F=1024)
-# (M, C, F) at the SwiGLU kernel's copy paths' edges: ragged everything
-# (element copies), F off the 32-unit chunk (aligned copies, zero-filled
-# groups), F % 8 == 4 (element copies at the flagship width); and the M
-# at which the plan splits F over clusters of 4 and 8 (on 132 SMs), so
-# that with the shapes above every cluster size runs.
+# (M, C, F): the flagship FFN (d_model 256, d_ff 1024) at the A/B's M,
+# and Conformer-L's (bench config 5: d_model 512, d_ff 2048) at its
+# training step's and its forward's rows (B=4 and B=16 x T'=1601).
+SWIGLU_SHAPES = ((6400, 256, 1024), (6401, 256, 1024), (25600, 256, 1024), (6404, 512, 2048),
+                 (25616, 512, 2048))
+# (M, C, F) at the SwiGLU kernel's edges: ragged everything (the copy
+# path), F off the 64-unit chunk (TMA, boxes past F), F % 8 == 4 (the copy
+# path at the flagship width); the M at which the plan splits F over
+# clusters of 4 and 8 (on 132 SMs), so that with the shapes above every
+# split runs; Conformer-L's width with ragged M and F (TMA), and C near
+# 512 with C % 8 != 0 (the copy path).
 SWIGLU_EDGES = ((37, 40, 70), (6400, 256, 1000), (6400, 256, 1020), (3000, 256, 1024),
-                (5, 256, 1024))
+                (5, 256, 1024), (301, 512, 1960), (77, 508, 1996))
 TOLERANCES = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}  # (out, lse)
 CTC_SHAPES = dict(B=32, T=(200, 800), L=(64, 512), V=(56, 1000, 32768))
 CTC_MAIN = dict(B=32, T=200, L=64, V=56)  # a training step's CTC shape
@@ -428,6 +437,8 @@ def build_phase():
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")  # wgmma, mma.sync, TMA tile loads
 SASS_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv", "flash_bwd_dq")  # the bf16 products' kernels
+# swiglu_fwd_kernel<kSplit, kTma, kMc>: the instance's TMA flag from its name
+_SWIGLU_INSTANCE = re.compile(r"swiglu_fwd_kernelILb[01]ELb([01])E")
 
 
 def sass_counts(text):
@@ -439,22 +450,45 @@ def sass_counts(text):
 
 
 def wgmma_missing(counts):
-    """The bf16 forward, dk/dv and dq instances in ``counts`` without an
-    HGMMA (wgmma) or a UTMALDG (TMA load)."""
-    return [name for name, c in counts.items()
-            if "__nv_bfloat16" in name and any(k in name for k in SASS_KERNELS)
-            and (c["HGMMA"] == 0 or c["UTMALDG"] == 0)]
+    """The instances in ``counts`` whose products are not on wgmma fed by
+    TMA: a bf16 attention forward, dk/dv or dq instance without an HGMMA
+    (wgmma) or a UTMALDG (TMA load), and a SwiGLU instance without HGMMA,
+    with an HMMA (mma.sync), or, on its TMA path, without UTMALDG."""
+    missing = []
+    for name, c in counts.items():
+        swiglu = _SWIGLU_INSTANCE.search(name)
+        if swiglu:
+            if c["HGMMA"] == 0 or c["HMMA"] > 0 or (swiglu.group(1) == "1" and c["UTMALDG"] == 0):
+                missing.append(name)
+        elif ("__nv_bfloat16" in name and any(k in name for k in SASS_KERNELS)
+              and (c["HGMMA"] == 0 or c["UTMALDG"] == 0)):
+            missing.append(name)
+    return missing
 
 
-def attention_sass():
-    """The attention libraries' SASS: for every function, its HGMMA, HMMA
-    and UTMALDG count; raises if a bf16 forward or backward instance has
-    no HGMMA or no UTMALDG."""
-    from turkish_asr_torch.ops import _build, flash_attention as fa
+def ptxas_spills(log):
+    """{function: (spill store bytes, spill load bytes)} of every function
+    whose ``nvcc -Xptxas -v`` report in ``log`` spills."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name is not None and (int(m.group(1)) or int(m.group(2))):
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
+def library_sass(libraries):
+    """The SASS of each {name: sources} library: for every function, its
+    HGMMA, HMMA and UTMALDG count; raises if an instance's products are
+    not on wgmma fed by TMA (wgmma_missing)."""
+    from turkish_asr_torch.ops import _build
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     result = {}
-    for name, sources in (("flash_attention_fwd", fa.KERNEL_SOURCES),
-                          ("flash_attention_bwd", fa.BWD_SOURCES)):
+    for name, sources in libraries.items():
         text = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name, sources))],
                               capture_output=True, text=True, check=True).stdout
         counts = result[name] = sass_counts(text)
@@ -463,8 +497,15 @@ def attention_sass():
                   flush=True)
         missing = wgmma_missing(counts)
         if missing or not counts:
-            raise AssertionError(f"{name}: bf16 instances without wgmma or TMA loads: {missing}")
+            raise AssertionError(f"{name}: instances without wgmma or TMA loads: {missing}")
     return result
+
+
+def attention_sass():
+    """The attention libraries' SASS (library_sass)."""
+    from turkish_asr_torch.ops import flash_attention as fa
+    return library_sass({"flash_attention_fwd": fa.KERNEL_SOURCES,
+                         "flash_attention_bwd": fa.BWD_SOURCES})
 
 
 def attention_phase():
@@ -815,31 +856,41 @@ def _one_kernel(fn, name):
 
 
 def swiglu_phase():
-    """The port's SwiGLU A/B at each M (its kernel launches counted), then
-    the kernel at every row tile against the fused plain version, two
-    calls' bits, the ragged and unaligned shapes and the device kernels a
-    call.
+    """The SwiGLU library's SASS (every instance on wgmma, the TMA ones with
+    TMA loads, no mma.sync) and ptxas report (no spills), the port's A/B
+    at each shape (its kernel launches counted), then the kernel at every
+    row tile against the fused plain version, two calls' bits, the edges
+    and the device kernels a call.
 
-    Returns (launches in the A/B runs, max abs error, the kernel's, the
-    fused plain version's and the chain's times and the bound at the first
-    M). No single torch call computes the fused FFN: library_ms is None."""
-    from turkish_asr_torch.ops import swiglu as sw
+    Returns (launches in the A/B runs, max abs error, times): the kernel's,
+    the fused plain version's and the chain's times and the bound at the
+    first shape, the same at Conformer-L's first under "conformer_l", the
+    SASS counts, and cuBLAS's two products alone ("cublas_products_ms", a
+    yardstick). No single torch call computes the fused FFN: library_ms is
+    None."""
+    from turkish_asr_torch.ops import _build, swiglu as sw
     from turkish_asr_torch.ops._swiglu import swiglu_chain, swiglu_fused_ref
     from turkish_asr_torch.scripts import ab_swiglu
 
-    C, F = SWIGLU_SHAPES["C"], SWIGLU_SHAPES["F"]
+    sass = library_sass({"swiglu_fwd": sw.SOURCES})["swiglu_fwd"]
+    spills = ptxas_spills(_build.library_path("swiglu_fwd", sw.SOURCES)
+                          .with_suffix(".log").read_text())
+    if spills:
+        raise AssertionError(f"swiglu_fwd instances spill (store, load bytes): {spills}")
+    print(f"swiglu_fwd: {len(sass)} instances, no spills; HMMA in the library: "
+          f"{sum(c['HMMA'] for c in sass.values())}", flush=True)
+
     sw.swiglu.launches = 0
-    for M in SWIGLU_SHAPES["M"]:
-        ab_swiglu.main([str(M), str(C), str(F)])
+    ab = [ab_swiglu.main([str(M), str(C), str(F)]) for M, C, F in SWIGLU_SHAPES]
     launches = sw.swiglu.launches
     if launches == 0:
         raise AssertionError("the SwiGLU A/B launched no kernel")
     print(f"kernel launches in the SwiGLU A/B runs: {launches}", flush=True)
 
     rng = np.random.default_rng(1)
-    err, times = 0.0, {}
+    err, by_width = 0.0, {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clusters = set()
+    fsplits = set()
 
     def check(M, C, F, args, label):
         """Every tile against the fused plain version, into a block the
@@ -847,7 +898,7 @@ def swiglu_phase():
         ref = swiglu_fused_ref(*args)
         tol = 2.0 ** -7 * ref.abs().max().item()
         worst = 0.0
-        for tm in sw.ROW_TILES:
+        for tm in sw.row_tiles(C):
             # The allocator hands the kernel's output the block this NaN
             # tensor frees, so a row the kernel leaves unwritten shows.
             poison = torch.full((M, C), float("nan"), dtype=torch.bfloat16, device="cuda")
@@ -863,60 +914,60 @@ def swiglu_phase():
                 raise AssertionError(f"swiglu {label} tm={tm}: max|kernel - plain| {e} > {tol} "
                                      f"(2^-7 max|plain|)")
             worst = max(worst, e)
-        plans = {tm: tuple(sw.swiglu_plan(M, C, F, tm, sms)[:2]) for tm in sw.ROW_TILES}
-        clusters.update(cluster for _, cluster in plans.values())
-        print(f"swiglu {label}: every row finite at tm {sw.ROW_TILES} (plans (grid, cluster) "
-              f"{plans}), max|kernel - plain| {worst:.3e} (tol {tol:.3e})", flush=True)
-        return worst, ref
+        plans = {tm: sw.swiglu_plan(M, C, F, tm, sms) for tm in sw.row_tiles(C)}
+        fsplits.update(p.fsplit for p in plans.values())
+        print(f"swiglu {label}: every row finite at tm {sw.row_tiles(C)} (plans (grid, "
+              f"fsplit) {({tm: (p.grid, p.fsplit) for tm, p in plans.items()})}), "
+              f"max|kernel - plain| {worst:.3e} (tol {tol:.3e})", flush=True)
+        return worst
 
-    for M in SWIGLU_SHAPES["M"]:
+    for (M, C, F), result in zip(SWIGLU_SHAPES, ab):
         x, w1, b1, w2, b2 = ab_swiglu.make_inputs(M, C, F)
         b1 = (0.1 * rng.standard_normal(b1.shape)).astype(np.float32)
         b2 = (0.1 * rng.standard_normal(b2.shape)).astype(np.float32)
         args = sw.args_from_numpy(x, w1, b1, w2, b2, "cuda")
-        e, _ = check(M, C, F, args, f"M={M} C={C} F={F}")
-        err = max(err, e)
+        err = max(err, check(M, C, F, args, f"M={M} C={C} F={F}"))
         kernel_ms = _median_ms(lambda: sw.swiglu(*args))
         plain_ms = _median_ms(lambda: swiglu_fused_ref(*args))
         chain_ms = _median_ms(lambda: swiglu_chain(*args))
-        if not times:
+        if C not in by_width:  # each width's first shape
             first, second = sw.swiglu(*args), sw.swiglu(*args)
             torch.cuda.synchronize()
             if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
-                raise AssertionError(f"two swiglu calls at M={M} differ")
+                raise AssertionError(f"two swiglu calls at M={M} C={C} differ")
             kernels = _one_kernel(lambda: sw.swiglu(*args), "swiglu_fwd_kernel")
             (ms, chained), (plain, plain_chained) = (_times(lambda: sw.swiglu(*args)),
                                                      _times(lambda: swiglu_fused_ref(*args)))
-            times = dict(ms=ms, chained_ms=chained, median_ms=kernel_ms, plain_ms=plain,
-                         plain_chained_ms=plain_chained, library_ms=None,
-                         chain_ms=_times(lambda: swiglu_chain(*args))[0],
-                         device_kernels_per_call=kernels,
-                         **kernel_bounds("swiglu_fwd", M=M, C=C, F=F))
-            print(f"swiglu M={M}: two calls bit-identical; {kernels:.2f} device kernels a call "
-                  f"(swiglu_fwd_kernel alone); device ms (chained): kernel {ms:.4f} "
+            t = by_width[C] = dict(
+                M=M, C=C, F=F, tm=sw.default_tile(C), ms=ms, chained_ms=chained,
+                median_ms=kernel_ms, plain_ms=plain, plain_chained_ms=plain_chained,
+                library_ms=None, chain_ms=_times(lambda: swiglu_chain(*args))[0],
+                cublas_products_ms=result["cublas_products"]["ms"],
+                device_kernels_per_call=kernels, **kernel_bounds("swiglu_fwd", M=M, C=C, F=F))
+            print(f"swiglu M={M} C={C}: two calls bit-identical; {kernels:.2f} device kernels a "
+                  f"call (swiglu_fwd_kernel alone); device ms (chained): kernel {ms:.4f} "
                   f"({chained:.4f}), fused plain {plain:.4f} ({plain_chained:.4f}), chain "
-                  f"{times['chain_ms']:.4f}; bound {times['bound_ms']:.4f} ms by "
-                  f"{times['bound_by']}", flush=True)
-        print(f"swiglu M={M} C={C} F={F}: kernel (tm={sw.DEFAULT_TILE}) {kernel_ms:.4f} ms, "
+                  f"{t['chain_ms']:.4f}, cuBLAS products {t['cublas_products_ms']:.4f}; bound "
+                  f"{t['bound_ms']:.4f} ms by {t['bound_by']}", flush=True)
+        print(f"swiglu M={M} C={C} F={F}: kernel (tm={sw.default_tile(C)}) {kernel_ms:.4f} ms, "
               f"fused plain {plain_ms:.4f} ms, chain {chain_ms:.4f} ms (single-call medians)",
               flush=True)
-    # The staging paths' edges: C, F and M off every tile and chunk (the
-    # element-by-element copies), F off the 32-unit chunk with aligned
-    # copies, F % 8 == 4 (the value half of a w1 row off 16 bytes); and
-    # the M at which the plan picks clusters of 4 and 8.
+    # The edges: C, F and M off every tile and chunk (the copy path), F off
+    # the 64-unit chunk through TMA, F % 8 == 4 and C % 8 != 0 (the copy
+    # path at width); the M at which the plan splits F four and eight ways.
     for M, Ce, Fe in SWIGLU_EDGES:
         x, w1, b1, w2, b2 = (rng.standard_normal(shape).astype(np.float32) * scale
                              for shape, scale in (((M, Ce), 1.0), ((Ce, 2 * Fe), 0.05),
                                                   ((1, 2 * Fe), 0.1), ((Fe, Ce), 0.05),
                                                   ((1, Ce), 0.1)))
         args = sw.args_from_numpy(x, w1, b1, w2, b2, "cuda")
-        aligned = sw.swiglu_plan(M, Ce, Fe, sw.DEFAULT_TILE, sms).aligned
-        e, _ = check(M, Ce, Fe, args, f"M={M} C={Ce} F={Fe} ({'aligned' if aligned else 'element'}"
-                                      f" copies)")
-        err = max(err, e)
-    if clusters != set(sw.CLUSTER_SIZES):
-        raise AssertionError(f"the SwiGLU checks ran clusters {sorted(clusters)} on {sms} SMs, "
-                             f"not every size of {sw.CLUSTER_SIZES}")
+        aligned = sw.swiglu_plan(M, Ce, Fe, sw.default_tile(Ce), sms).aligned
+        err = max(err, check(M, Ce, Fe, args, f"M={M} C={Ce} F={Fe} "
+                                               f"({'TMA' if aligned else 'copy path'})"))
+    if fsplits != set(sw.FSPLITS):
+        raise AssertionError(f"the SwiGLU checks split F {sorted(fsplits)} ways on {sms} SMs, "
+                             f"not every split of {sw.FSPLITS}")
+    times = dict(by_width[256], conformer_l=by_width[512], sass=sass)
     return launches, err, times
 
 
@@ -2809,8 +2860,12 @@ def main():
         if name == "dropout_mask":
             entry["large_ms"] = t["large"]
         if name == "swiglu_fwd":
-            entry.update(chain_ms=t["chain_ms"], on_main_path=False,
-                         path="python turkish_asr_torch/scripts/ab_swiglu.py")
+            entry.update(chain_ms=t["chain_ms"], cublas_products_ms=t["cublas_products_ms"],
+                         on_main_path=False, sass=t["sass"],
+                         path="python turkish_asr_torch/scripts/ab_swiglu.py",
+                         conformer_l={k: t["conformer_l"][k] for k in
+                                      ("M", "C", "F", "tm", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "chain_ms", "cublas_products_ms")})
         kernels.append(entry)
     print(json.dumps({"beam": beam}))
     print(json.dumps(numbers))

@@ -549,7 +549,8 @@ def test_swiglu_kernel_matches_plain_version(cuda, M):
 
 @pytest.mark.cuda
 def test_swiglu_kernel_takes_narrow_and_ragged_shapes(cuda):
-    """C and F that are no multiple of the kernel's 32-column chunks."""
+    """C and F that are no multiple of the kernel's 64-column atoms and
+    64- or 128-unit chunks."""
     rng = np.random.default_rng(0)
     x, w1, b1, w2, b2 = (rng.standard_normal(s).astype(np.float32) * 0.3
                          for s in ((37, 40), (40, 2 * 70), (1, 140), (70, 40), (1, 40)))
@@ -579,9 +580,9 @@ def test_swiglu_kernel_is_deterministic(cuda, M, C, F):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,F", [(256, 1000), (256, 1020), (200, 64), (136, 96)])
 def test_swiglu_kernel_at_its_copy_paths_edges(cuda, C, F):
-    """F off the 32-unit chunk with 16-byte copies (1000), F % 8 == 4 and
-    C % 16 == 8 (the element copies at width; a zero-filled group of 8
-    columns), against the fused plain version at every tile."""
+    """F off the 64-unit chunk through TMA (1000), F % 8 == 4 (the copy
+    path at width), C = 200 and 136 (off the 64-column atom), against the
+    fused plain version at every tile."""
     rng = np.random.default_rng(C + F)
     M = 6400
     args = sw.args_from_numpy(*(rng.standard_normal(shape).astype(np.float32) * scale
@@ -612,17 +613,54 @@ def test_swiglu_ab_script_prints_its_lines(cuda):
     with contextlib.redirect_stdout(out):
         result = ab_swiglu.main(["640", "256", "1024"])
     lines = out.getvalue().splitlines()
-    assert len(lines) == len(sw.ROW_TILES) + 4
+    assert len(lines) == 2 * len(sw.ROW_TILES) + 5
     assert lines[0].startswith(torch.cuda.get_device_name(0) + "; checkout ")
     times = r"device [0-9.]+ ms, chained [0-9.]+ ms"
-    for line, tm in zip(lines[1:], sw.ROW_TILES):
-        assert re.fullmatch(rf"cuda tm= *{tm}: {times} \(max err vs chain [0-9.e+-]+\)", line)
-    assert re.fullmatch(rf"fused plain: {times} \(max err vs chain [0-9.e+-]+\)", lines[-3])
-    assert re.fullmatch(rf"chain: {times} M=640 C=256 F=1024", lines[-2])
+    err = r"\(max err vs chain [0-9.e+-]+\)"
+    for i, tm in enumerate(sw.ROW_TILES):
+        assert re.fullmatch(rf"cuda tm= *{tm}: {times} {err}", lines[1 + 2 * i])
+        assert re.fullmatch(rf"cuda tm= *{tm} multicast 2 \(clusters \d\): {times} {err}",
+                            lines[2 + 2 * i])
+    assert re.fullmatch(rf"fused plain: {times} {err}", lines[-4])
+    assert re.fullmatch(rf"chain: {times} M=640 C=256 F=1024", lines[-3])
+    assert re.fullmatch(r"cublas products \(x @ w1, g @ w2; unused by the port\): "
+                        r"device [0-9.]+ ms", lines[-2])
     assert json.loads(lines[-1]) == json.loads(json.dumps(result))
     assert sw.swiglu.launches > before
     assert set(result["tiles"]) == set(sw.ROW_TILES) and result["chain"]["ms"] > 0
-    assert all(r["ms"] > 0 and r["max_err"] < 0.1 for r in result["tiles"].values())
+    assert all(r["ms"] > 0 and r["max_err"] < 0.1
+               for r in (*result["tiles"].values(), *result["multicast"].values()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,C,F", [(6404, 512, 2048), (301, 512, 1960), (77, 508, 1996),
+                                   (1, 512, 2048)])
+def test_swiglu_kernel_at_conformer_l_width(cuda, M, C, F):
+    """Conformer-L's FFN (C=512) and its ragged neighbours at tm=64, with
+    and without multicast where the TMA path serves: every row finite in a
+    block the allocator last held as NaN, within 2^-7 max|plain|, two
+    calls bit-identical."""
+    rng = np.random.default_rng(M + C)
+    args = sw.args_from_numpy(*(rng.standard_normal(shape).astype(np.float32) * scale
+                                for shape, scale in (((M, C), 1.0), ((C, 2 * F), 0.05),
+                                                     ((1, 2 * F), 0.1), ((F, C), 0.05),
+                                                     ((1, C), 0.1))), cuda)
+    want = swiglu_fused_ref(*args).float()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans = [sw.swiglu_plan(M, C, F, 64, sms)]
+    if plans[0].aligned:
+        plans.append(sw.swiglu_plan(M, C, F, 64, sms, multicast=2))
+    x, w1, b1, w2, b2 = args
+    for plan in plans:
+        poison = torch.full((M, C), float("nan"), dtype=torch.bfloat16, device=cuda)
+        del poison
+        got = sw.launch(x, w1, b1.reshape(-1), w2, b2.reshape(-1), 64, plan)
+        again = sw.launch(x, w1, b1.reshape(-1), w2, b2.reshape(-1), 64, plan)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(dim=1).all()
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=2.0 ** -7 * want.abs().max().item())
 
 
 @pytest.mark.cuda

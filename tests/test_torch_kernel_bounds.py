@@ -35,6 +35,9 @@ SERVE = dict(B=16, H=4, Kh=1, T=601, D=64)
     # x 3.2768 MB, w1 1.048576 MB, w2 0.524288 MB, b1 8192, b2 1024, y
     # 3.2768 MB; 6*M*C*F
     ("swiglu_fwd", dict(M=6400, C=256, F=1024), 10_066_329_600, 8_135_680, "operations"),
+    # Conformer-L: x 6.557696 MB, w1 4.194304 MB, w2 2.097152 MB, b1 16384,
+    # b2 2048, y 6.557696 MB
+    ("swiglu_fwd", dict(M=6404, C=512, F=2048), 40_290_484_224, 19_425_280, "operations"),
 ])
 def test_kernel_bounds_match_the_hand_counts(name, shape, flops, nbytes, bound_by):
     got = chip_smoke.kernel_bounds(name, **shape)
@@ -95,6 +98,20 @@ ATTENTION_SASS = """
         /*0010*/                   EXIT ;
 		Function : _ZN12_GLOBAL__N_120flash_bwd_sum_chunksEPK6float4PS0_S3_im
         /*0000*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb1ELi1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+        /*0000*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4].tnspB, R24 ;
+        /*0020*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb0ELi1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+        /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4].tnspB, R24 ;
+        /*0010*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb1ELi2EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+        /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4].tnspB, R24 ;
+        /*0010*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb0ELi1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4].tnspB, R24 ;
+        /*0020*/                   EXIT ;
 """
 
 
@@ -105,14 +122,41 @@ def test_attention_sass_counts_wgmma_mma_and_tma_loads():
     assert list(counts.values()) == [{"HGMMA": 2, "HMMA": 0, "UTMALDG": 1},
                                      {"HGMMA": 0, "HMMA": 1, "UTMALDG": 1},
                                      {"HGMMA": 0, "HMMA": 1, "UTMALDG": 0},
-                                     {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0}]
+                                     {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0},
+                                     {"HGMMA": 1, "HMMA": 0, "UTMALDG": 1},
+                                     {"HGMMA": 1, "HMMA": 0, "UTMALDG": 0},
+                                     {"HGMMA": 1, "HMMA": 0, "UTMALDG": 0},
+                                     {"HGMMA": 1, "HMMA": 1, "UTMALDG": 0}]
 
 
 def test_attention_sass_check_names_bf16_instances_without_wgmma():
     """Only bf16 forward, dk/dv and dq instances must hold wgmma and TMA
-    loads: the fp32 dq and the chunk sum are not held to it."""
+    loads: the fp32 dq and the chunk sum are not held to it. Every SwiGLU
+    instance must hold wgmma and no mma.sync, its TMA instances TMA loads."""
     missing = chip_smoke.wgmma_missing(chip_smoke.sass_counts(ATTENTION_SASS))
-    assert missing == ["_ZN12_GLOBAL__N_114flash_bwd_dkdvI13__nv_bfloat16Li64ELb1EEEv14CUtensorMap_st"]
+    assert missing == [
+        "_ZN12_GLOBAL__N_114flash_bwd_dkdvI13__nv_bfloat16Li64ELb1EEEv14CUtensorMap_st",
+        # SwiGLU: a TMA instance (second flag 1) without UTMALDG, one with HMMA
+        "_ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb1ELi2EEEv14CUtensorMap_stS1_S1_NS_6ParamsE",
+        "_ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb0ELi1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE"]
+
+
+PTXAS_LOG = """ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1aPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1bPf
+    48 bytes stack frame, 76 bytes spill stores, 92 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 48 bytes cumulative stack size
+"""
+
+
+def test_ptxas_spills_names_the_functions_that_spill():
+    """chip_smoke's spill check on a made-up ``-Xptxas -v`` report."""
+    assert chip_smoke.ptxas_spills(PTXAS_LOG) == {"_Z1bPf": (76, 92)}
+    first = PTXAS_LOG.split("ptxas info    : Compiling entry function '_Z1b")[0]
+    assert chip_smoke.ptxas_spills(first) == {}
 
 
 def test_ab_attention_needs_a_card(monkeypatch):

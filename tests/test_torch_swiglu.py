@@ -28,7 +28,9 @@ from turkish_asr_torch.ops._swiglu import swiglu_chain, swiglu_fused_ref
 from turkish_asr_torch.scripts.ab_swiglu import make_inputs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = [(512, 32, 64, 128), (256, 256, 1024, 128)]
+# (M, C, F, tm of the JAX kernel): narrow, the flagship FFN, Conformer-L's
+# (C=512, F=2048).
+SHAPES = [(512, 32, 64, 128), (256, 256, 1024, 128), (128, 512, 2048, 128)]
 
 
 @pytest.fixture(scope="module")
@@ -163,10 +165,19 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(change, match):
         sw.swiglu(*args, tm=tm)
 
 
-def test_wrapper_refuses_more_than_256_columns():
-    x, w1, b1, w2, b2 = sw.args_from_numpy(*_case(4, 264, 8, seed=6), "cpu")
-    with pytest.raises(ValueError, match="C <= 256"):
+def test_wrapper_refuses_more_than_512_columns():
+    x, w1, b1, w2, b2 = sw.args_from_numpy(*_case(4, 520, 8, seed=6), "cpu")
+    with pytest.raises(ValueError, match="C <= 512"):
         sw.swiglu(x, w1, b1, w2, b2)
+
+
+def test_wrapper_takes_512_columns_at_its_default_tile():
+    """C=512 runs at tm=64 unless told otherwise; tm=128 takes C <= 256."""
+    args = sw.args_from_numpy(*_case(4, 512, 8, seed=7), "cpu")
+    assert sw.default_tile(512) == 64 and sw.default_tile(256) == sw.DEFAULT_TILE == 128
+    assert sw.swiglu(*args).shape == (4, 512)
+    with pytest.raises(ValueError, match="tm=128 takes C <= 256"):
+        sw.swiglu(*args, tm=128)
 
 
 def test_entry_point_needs_a_cuda_card():
@@ -182,34 +193,81 @@ SMEM = 232_448  # the H100's dynamic shared memory a block
 SMS = 132  # the H100 SXM's streaming multiprocessors
 
 
+def _check_plan(p, M, F, tm):
+    """A plan's invariants: the blocks of one F split share rows, the row
+    tiles cover M with no cluster past it, the split divides F's chunks
+    among at most as many blocks as there are chunks, shared memory fits a
+    block, and the split is the fewest blocks that put a block on half the
+    132 SMs."""
+    chunk = sw.INSTANCES[tm]["chunk"]
+    assert (p.chunk, p.stages, p.groups) == (chunk, sw.INSTANCES[tm]["stages"], 3)
+    assert p.fsplit in sw.FSPLITS and p.fsplit <= -(-F // chunk)
+    assert p.cluster == p.multicast * p.fsplit <= sw.MAX_CLUSTER
+    assert p.grid % p.cluster == 0
+    tiles = p.grid // p.fsplit
+    assert tiles * tm >= M > (tiles - p.multicast) * tm
+    assert p.smem <= SMEM
+    assert 2 * p.grid >= SMS or p.fsplit == min(sw.MAX_CLUSTER // p.multicast, -(-F // chunk))
+    assert p.fsplit == 1 or 2 * tiles * (p.fsplit // 2) < SMS
+
+
 @pytest.mark.parametrize("tm", sw.ROW_TILES)
 @pytest.mark.parametrize("M", [1, 5, 3000, 6400, 6401, 25600])
 def test_plan_covers_the_rows_within_shared_memory(M, tm):
-    """The flagship FFN (C=256, F=1024): the blocks of one cluster share
-    rows, the clusters' tiles cover M with no tile past it, the cluster
-    splits F's 32-unit chunks and the shared memory fits a block."""
+    """The flagship FFN (C=256, F=1024) at both row tiles."""
     p = sw.swiglu_plan(M, 256, 1024, tm, SMS)
-    assert p.cluster in sw.CLUSTER_SIZES and p.cluster <= 1024 // sw.CHUNK
-    assert p.grid % p.cluster == 0
-    tiles = p.grid // p.cluster
-    assert tiles * tm >= M > (tiles - 1) * tm
-    assert p.smem <= SMEM
-    assert p.aligned
-    # the fewest blocks of a cluster that put a block on half the 132 SMs
-    assert 2 * p.grid >= SMS or p.cluster == sw.CLUSTER_SIZES[-1]
-    assert p.cluster == 1 or 2 * tiles * (p.cluster // 2) < SMS
+    _check_plan(p, M, 1024, tm)
+    assert p.aligned and p.multicast == 1
+
+
+@pytest.mark.parametrize("M", [1, 5, 301, 6404, 25616])
+def test_plan_at_conformer_l_width(M):
+    """Conformer-L's FFN (C=512, F=2048) at its one row tile, 64: the
+    training step's M=6404 and the forward's 25616 fill the card with
+    unsplit F (101 and 401 blocks); small M split F up to 8 ways."""
+    assert sw.row_tiles(512) == (64,)
+    p = sw.swiglu_plan(M, 512, 2048, 64, SMS)
+    _check_plan(p, M, 2048, 64)
+    assert p.aligned and p.multicast == 1
+    assert p.fsplit == {1: 8, 5: 8, 301: 8, 6404: 1, 25616: 1}[M]
+
+
+@pytest.mark.parametrize("C,F", [(512, 2044), (508, 2048), (505, 1999)])
+def test_plan_takes_the_copy_path_at_conformer_l_width(C, F):
+    """C % 8 or F % 8 off 0 near Conformer-L's width: no tensor map, the
+    producer's element copies, and no multicast."""
+    p = sw.swiglu_plan(6404, C, F, 64, SMS)
+    _check_plan(p, 6404, F, 64)
+    assert not p.aligned
+    with pytest.raises(ValueError, match="multicast"):
+        sw.swiglu_plan(6404, C, F, 64, SMS, multicast=2)
+
+
+@pytest.mark.parametrize("M,tm", [(6400, 128), (6401, 128), (6404, 64), (1, 64)])
+def test_plan_with_multicast_pairs_the_row_tiles(M, tm):
+    """multicast=2 (the A/B's alternative): clusters hold two row tiles of
+    every F split, an odd tile count gets a tile past M, and the cluster
+    stays within 8 blocks."""
+    F = 1024 if tm == 128 else 2048
+    p = sw.swiglu_plan(M, 256 if tm == 128 else 512, F, tm, SMS, multicast=2)
+    _check_plan(p, M, F, tm)
+    assert p.multicast == 2 and (p.grid // p.fsplit) % 2 == 0
+    with pytest.raises(ValueError, match="multicast"):
+        sw.swiglu_plan(M, 256, 1024, 64, SMS, multicast=2, aligned=False)
 
 
 def test_plan_at_the_a_b_shapes():
-    """M=6400: 50 tiles of 128 rows in clusters of 2, or 100 of 64 alone
-    (100 blocks either way); M=25600 needs no cluster; M=3000 takes
-    clusters of 4 (24 tiles), M=1 of 8. The shared memory the kernel's
-    header states: 228,864 bytes at tm=128, 195,072 at tm=64."""
-    assert sw.swiglu_plan(6400, 256, 1024, 128, SMS) == (100, 2, 228_864, True)
-    assert sw.swiglu_plan(6400, 256, 1024, 64, SMS) == (100, 1, 195_072, True)
-    assert sw.swiglu_plan(25600, 256, 1024, 128, SMS) == (200, 1, 228_864, True)
+    """M=6400: 50 tiles of 128 rows with F split two ways, or 100 of 64
+    unsplit (100 blocks either way); M=25600 needs no split; M=3000 splits
+    four ways (24 tiles), M=1 eight. The shared memory the kernel's header
+    states: 230,472 bytes at either tile (a 64 KB x tile, four 32 KB
+    slots, 32 KB of g tiles, nine barriers, the 1024-byte alignment)."""
+    assert sw.swiglu_plan(6400, 256, 1024, 128, SMS)[:4] == (100, 2, 230_472, True)
+    assert sw.swiglu_plan(6400, 256, 1024, 64, SMS)[:4] == (100, 1, 230_472, True)
+    assert sw.swiglu_plan(25600, 256, 1024, 128, SMS)[:4] == (200, 1, 230_472, True)
     assert sw.swiglu_plan(3000, 256, 1024, 128, SMS)[:2] == (96, 4)
     assert sw.swiglu_plan(1, 256, 1024, 128, SMS)[:2] == (8, 8)
+    assert sw.swiglu_plan(6404, 512, 2048, 64, SMS)[:4] == (101, 1, 230_472, True)
 
 
 @pytest.mark.parametrize("sms,cluster", [(100, 1), (114, 2), (132, 2), (264, 4)])
@@ -222,17 +280,19 @@ def test_plan_follows_the_cards_sms(sms, cluster):
 @pytest.mark.parametrize("C,F", [(256, 1024), (256, 1000), (256, 1020), (40, 70), (8, 8),
                                  (12, 64), (256, 4), (1, 1), (200, 36)])
 def test_plan_takes_the_aligned_copies_exactly_where_they_fit(C, F):
-    """16-byte copies need C % 8 == 0 (x and w2 rows, 2C bytes) and F % 8
-    == 0: the value half of a w1 row starts at byte 2F, and a chunk's last
-    valid unit must end a 16-byte group. A cluster never outnumbers F's
-    chunks."""
+    """TMA needs 16-byte row strides: C % 8 == 0 (x and w2 rows, 2C bytes)
+    and F % 8 == 0 (w1 is read as (C, 2, F): a half's rows are 2F bytes
+    apart); pointers the wrapper finds unaligned take the copy path too.
+    An F split never outnumbers F's chunks."""
     for tm in sw.ROW_TILES:
         p = sw.swiglu_plan(6400, C, F, tm, SMS)
         assert p.aligned == (C % 8 == 0 and F % 8 == 0)
-        assert p.cluster <= -(-F // sw.CHUNK)
+        assert not sw.swiglu_plan(6400, C, F, tm, SMS, aligned=False).aligned
+        assert p.fsplit <= -(-F // sw.INSTANCES[tm]["chunk"])
 
 
-@pytest.mark.parametrize("M,C,F,tm,match", [(0, 8, 8, 64, "M >= 1"), (4, 257, 8, 64, "C <= 256"),
+@pytest.mark.parametrize("M,C,F,tm,match", [(0, 8, 8, 64, "M >= 1"), (4, 520, 8, 64, "C <= 512"),
+                                            (4, 257, 8, 128, "tm=128 takes C <= 256"),
                                             (4, 8, 0, 64, "F >= 1"), (4, 8, 8, 32, "tm must be")])
 def test_plan_refuses_what_the_kernel_does_not_take(M, C, F, tm, match):
     with pytest.raises(ValueError, match=match):

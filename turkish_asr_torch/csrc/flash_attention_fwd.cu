@@ -53,7 +53,7 @@
 //
 // fp32 inputs (dtype 0: the tests and the fp32 gradient check, not the
 // bf16 main path) run the same code with each operand a bf16 pair x = hi +
-// lo (flash_mma.cuh: pack_parts): TMA copies the fp32 tile into a staging
+// lo (flash_wgmma.cuh: pack_parts): TMA copies the fp32 tile into a staging
 // buffer and the producer warpgroup splits it into the two bf16 tiles as
 // it stages them. S and P V take three terms, hi*hi + hi*lo + lo*hi, the
 // two small ones summed in an accumulator of their own and added once a

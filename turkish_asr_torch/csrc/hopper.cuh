@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels: mbarrier
-// rings, TMA tile loads, wgmma on 128-byte-swizzled bf16 tiles, register
-// hand-over between warpgroups, and the host-side tensor-map encoding.
+// Hopper (sm_90a) building blocks of the flash-attention and SwiGLU
+// kernels: mbarrier rings, TMA tile loads, wgmma on 128-byte-swizzled bf16
+// tiles, register hand-over between warpgroups, and the host-side
+// tensor-map encoding.
 //
 // Tiles. A bf16 tile of R rows and C columns (C a multiple of 64) is C/64
 // "atoms" of R rows x 128 bytes, atom a at byte a * R * 128, each row's
@@ -22,10 +23,17 @@
 // The m64n64k16 accumulator (32 fp32 a thread) holds, in thread t of the
 // warpgroup (warp w = t / 32, g = t % 32 / 4, q = t % 4), element i at row
 // 16 w + g + 8 ((i / 2) % 2) and column 8 (i / 4) + 2 q + i % 2: the
-// mma.sync m16n8 layout of each warp's 16 rows. An A operand from
-// registers takes four bf16x2 a thread in the m16n8k16 A layout of the
-// same rows, so two 8-column groups of an accumulator, repacked, are the A
-// operand of a 16-deep k-step (flash_wgmma.cuh: a_parts).
+// mma.sync m16n8 layout of each warp's 16 rows. The m64n128k16 accumulator
+// (64 fp32 a thread) is the same formula for i < 64: elements 0-31 are
+// columns 0-63, as in the n64 one, and elements 32-63 columns 64-127. An
+// A operand from registers takes four bf16x2 a thread in the m16n8k16 A
+// layout of the same rows, so two 8-column groups of an accumulator,
+// repacked, are the A operand of a 16-deep k-step (flash_wgmma.cuh:
+// a_parts).
+//
+// An MN-major operand N columns wide (N > 64) spans N / 64 atoms LBO bytes
+// apart; the atoms need not be neighbours (swiglu_fwd.cu reads a gate atom
+// and a value atom 16 KB apart as one 128-column operand).
 
 #pragma once
 
@@ -82,6 +90,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// An arrival on the barrier at `bar`'s offset in the shared memory of
+// cluster CTA `cta` (this CTA's own rank included). Default semantics:
+// `.release.cluster` compiles to a GPU-wide memory barrier (MEMBAR.ALL.GPU)
+// before every arrival.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(cta));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+
 // A ring position: stage and the parity of its current round.
 struct Ring {
   int stage = 0;
@@ -98,6 +118,12 @@ struct Ring {
 // __syncthreads).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrival at named barrier id without waiting (the other threads of its
+// count wait on it with named_sync).
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Generic-proxy writes to shared memory made visible to the async proxy
@@ -117,6 +143,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same box into the same shared-memory offset of every CTA of the
+// cluster in cta_mask (bit r: rank r), each CTA's barrier at `bar`'s
+// offset counting the bytes it receives.
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "h"(cta_mask)
       : "memory");
 }
 
@@ -194,9 +234,9 @@ template <int N> __device__ __forceinline__ void wg_wait() {
 
 // Keeps the compiler from moving reads or writes of an accumulator across
 // the wgmma fence, commit and wait around it.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+template <int N> __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define HOPPER_ACC32(d)                                                                       \
@@ -235,6 +275,49 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(tB));
 }
 
+#define HOPPER_ACC64(d)                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),            \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),            \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),            \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),            \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),            \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),            \
+      "+f"(d[62]), "+f"(d[63])
+#define HOPPER_D64                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "     \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
+  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (+)= A B, m64n128k16 (accumulator layout above), A and B from shared
+// memory; tA / tB = 1 reads that operand MN-major.
+template <int tA, int tB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : HOPPER_ACC64(d)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(tA), "n"(tB));
+}
+
+// The same with A from registers.
+template <int tB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : HOPPER_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(tB));
+}
+
 }  // namespace hopper
 
 // ------------------------------------------------------------------- host
@@ -268,11 +351,12 @@ inline EncodeTiled encode_tiled() {
 // elements apart (pitch >= cols, pitch * elem_bytes a multiple of 16) and
 // whose outer index steps rows * pitch elements; element size 2 (bf16:
 // boxes of 64 columns, 128-byte swizzle) or 4 (fp32: boxes of box_cols
-// columns, unswizzled), box_rows rows and one outer index a box. Returns
-// false if the encoding is refused.
+// columns, unswizzled), box_rows rows and box_outer outer indices a box
+// (their rows follow one another in shared memory). Returns false if the
+// encoding is refused.
 inline bool encode_3d(CUtensorMap* map, const void* base, int elem_bytes, long long cols,
                       long long pitch, long long rows, long long outer, int box_cols,
-                      int box_rows) {
+                      int box_rows, int box_outer = 1) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
@@ -280,7 +364,8 @@ inline bool encode_3d(CUtensorMap* map, const void* base, int elem_bytes, long l
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(pitch * elem_bytes),
                                  static_cast<cuuint64_t>(rows * pitch * elem_bytes)};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows), 1};
+                             static_cast<cuuint32_t>(box_rows),
+                             static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map,
             elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,

@@ -7,8 +7,9 @@ raise. Forward only, as the TPU kernel: an input that requires grad is
 refused. ``swiglu.launches`` counts the kernel launches.
 
 ``swiglu_plan`` is the kernel's launch arithmetic, in Python so that the
-CPU tests hold it: the grid, the thread-block cluster that splits F, the
-shared memory and the copy path, which the kernel takes from it.
+CPU tests hold it: the grid, the thread-block cluster (row tiles sharing
+weight slots, blocks splitting F), the ring, the shared memory and the
+copy path, which the kernel takes from it and checks.
 """
 
 import ctypes
@@ -22,15 +23,40 @@ from turkish_asr_torch.ops._build import load_library
 from turkish_asr_torch.ops._swiglu import swiglu_fused_ref
 
 SOURCES = ("swiglu_fwd.cu",)
-ROW_TILES = (64, 128)  # rows a block owns (16 a warp); one kernel instance each
-DEFAULT_TILE = 128  # the faster of the two at M=6400, C=256, F=1024 on the H100 (PERF.md)
-MAX_C = 256  # y columns a warp holds
-CHUNK = 32  # hidden units a block stages and multiplies at a time
-STAGES = 3  # chunks in shared memory: two in flight while one is multiplied
-CLUSTER_SIZES = (1, 2, 4, 8)  # blocks of a cluster that split F (8: the portable most)
+ROW_TILES = (64, 128)  # rows a block owns; one kernel instance each
+# The row tile at C <= 256: at M=6400 and 25600 (C=256, F=1024) it took
+# 0.0373 and 0.1183-0.1193 ms on the H100 against 64 rows' 0.0391-0.0394
+# and 0.1476-0.1477 (ab_swiglu.py; PERF.md): 128 rows read each weight
+# byte from L2 for twice the rows, and 64 rows at C <= 256 compute both
+# warpgroups' column halves twice.
+DEFAULT_TILE = 128
+MAX_C = 512  # every d_model the repository's configurations use
+# Each row tile's instance: the hidden units a chunk, the ring's 32 KB
+# slots, and the widest C it takes. 128 rows: each consumer warpgroup owns
+# 64 of them, y (64 x C fp32) in its registers; 64 rows: the two split y's
+# columns (csrc/swiglu_fwd.cu).
+INSTANCES = {128: dict(chunk=64, stages=4, max_c=256), 64: dict(chunk=128, stages=4, max_c=512)}
+SLOT = 32768  # bytes of a ring slot
+X_TILE = 65536  # bytes of the x tile: 128 x 256 or 64 x 512 bf16
+G_TILES = 32768  # the g tiles: two buffers of 64 x 128 bf16
+WARPGROUPS = 3  # two consumer warpgroups and a producer warpgroup a block
+FSPLITS = (1, 2, 4, 8)  # blocks of a cluster that split F
+MULTICASTS = (1, 2)  # row tiles of a cluster that share each weight slot (TMA multicast)
+MAX_CLUSTER = 8  # the portable most
 _count_lock = threading.Lock()
 
-Plan = namedtuple("Plan", "grid cluster smem aligned")
+Plan = namedtuple("Plan", "grid cluster smem aligned stages chunk groups multicast fsplit")
+
+
+def default_tile(C):
+    """The row tile ``swiglu`` takes when none is given: DEFAULT_TILE where
+    its instance takes C, else 64."""
+    return DEFAULT_TILE if C <= INSTANCES[DEFAULT_TILE]["max_c"] else 64
+
+
+def row_tiles(C):
+    """The row tiles whose instance takes C columns."""
+    return tuple(tm for tm in ROW_TILES if C <= INSTANCES[tm]["max_c"])
 
 
 def _check_shape(M, C, F, tm):
@@ -39,43 +65,62 @@ def _check_shape(M, C, F, tm):
                          f"got M={M}, C={C}, F={F}")
     if tm not in ROW_TILES:
         raise ValueError(f"tm must be one of {ROW_TILES}, got {tm}")
+    if C > INSTANCES[tm]["max_c"]:
+        raise ValueError(f"tm={tm} takes C <= {INSTANCES[tm]['max_c']}, got C={C}; "
+                         f"tm=64 takes C <= {MAX_C}")
 
 
-def swiglu_plan(M, C, F, tm, sms):
+def swiglu_plan(M, C, F, tm, sms, multicast=1, aligned=True):
     """The launch of ``csrc/swiglu_fwd.cu`` for x (M, C) and F hidden
     units at ``tm`` rows a block on a card of ``sms`` SMs: ``grid``
-    blocks, ``cluster`` of them on the same rows splitting F's 32-unit
-    chunks, ``smem`` bytes of shared memory a block (the x tile of tm rows
-    and STAGES w1 and w2 chunks in bf16, rows padded by 8 elements; the
-    cluster's fp32 partial y reuses them), whether the ``aligned`` 16-byte
-    copies serve (C % 8 == 0 and F % 8 == 0: every 16-byte group of a row
-    lies inside C or F, and the value half of a w1 row starts at byte 2F;
-    the wrapper also needs 16-byte aligned tensors). A block runs 2 tm
-    threads. The kernel takes the grid and the bytes from here and refuses
-    fewer bytes than it stages.
+    blocks of ``groups`` warpgroups (two consumers and a TMA producer) in
+    clusters of ``cluster`` = ``multicast`` x ``fsplit`` blocks:
+    ``multicast`` row tiles that share each weight slot through TMA
+    multicast, ``fsplit`` blocks on the same rows that split F's
+    ``chunk``-unit chunks; ``stages`` 32 KB ring slots, ``smem`` bytes of
+    shared memory a block (the x tile, the ring, the g tiles, the barriers
+    and the 1024-byte alignment; the partial y of an F split reuses them),
+    and whether the ``aligned`` path serves: TMA needs C % 8 == 0 and F %
+    8 == 0 (16-byte row strides of x, w2 and each half of w1) and 16-byte
+    aligned tensors (``aligned=False`` says they are not); otherwise the
+    producer copies the same tiles element by element, and there is no
+    multicast. The kernel refuses any other plan.
 
-    A block takes an SM of its own (its shared memory), so the cluster is
-    the fewest blocks that put a block on at least half of the card's SMs,
-    and no more than there are chunks: beyond that, splitting F adds a
-    second wave of blocks and the cluster's sum without shortening the
-    first (on the H100 at M=6400, tm=128, clusters of 2 beat 4 and 1;
-    PERF.md)."""
+    tm=128 (C <= 256) holds y for 64 rows a consumer warpgroup; tm=64 (C
+    <= 512, Conformer-L's 512 included) shares 64 rows between the two,
+    which split y's columns. A block takes an SM of its own (its shared
+    memory), so ``fsplit`` is the fewest blocks that put a block on at
+    least half of the card's SMs, and no more than there are chunks:
+    beyond that, splitting F adds a second wave of blocks and the sum of
+    the partial y's without shortening the first. ``multicast`` defaults
+    to 1: sharing the slots between two row tiles measured 1-8% slower at
+    every A/B shape on the H100 (PERF.md); 2 is there to A/B it
+    (``turkish_asr_torch/scripts/ab_swiglu.py``)."""
     _check_shape(M, C, F, tm)
-    tiles, chunks = -(-M // tm), -(-F // CHUNK)
-    cluster = next((s for s in CLUSTER_SIZES if 2 * tiles * s >= sms), CLUSTER_SIZES[-1])
-    cluster = max(s for s in CLUSTER_SIZES if s <= min(cluster, chunks))
-    smem = 2 * (tm * (MAX_C + 8) + STAGES * (MAX_C * (2 * CHUNK + 8) + CHUNK * (MAX_C + 8)))
-    return Plan(tiles * cluster, cluster, smem, C % 8 == 0 and F % 8 == 0)
+    aligned = aligned and C % 8 == 0 and F % 8 == 0
+    if multicast not in MULTICASTS or (multicast > 1 and not aligned):
+        raise ValueError(f"multicast must be one of {MULTICASTS}, and 1 without the aligned "
+                         f"(TMA) path; got {multicast}, aligned={aligned}")
+    inst = INSTANCES[tm]
+    tiles, chunks = -(-M // tm), -(-F // inst["chunk"])
+    fits = [s for s in FSPLITS if s <= chunks and multicast * s <= MAX_CLUSTER]
+    fsplit = next((s for s in fits if 2 * tiles * s >= sms), fits[-1])
+    stages = inst["stages"]
+    smem = X_TILE + stages * SLOT + G_TILES + 8 * (2 * stages + 1) + 1024
+    grid = -(-tiles // multicast) * multicast * fsplit
+    return Plan(grid, multicast * fsplit, smem, aligned, stages, inst["chunk"], WARPGROUPS,
+                multicast, fsplit)
 
 
 def load_kernel():
     fn = load_library("swiglu_fwd", SOURCES).swiglu_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     return fn
 
 
 def _check(x, w1, b1, w2, b2, tm):
+    """Raises on what the kernel does not take; returns the row tile."""
     if x.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
         raise ValueError("x must be (M, C), w1 (C, 2F) and w2 (F, C)")
     M, C = x.shape
@@ -93,42 +138,55 @@ def _check(x, w1, b1, w2, b2, tm):
     if any(t.requires_grad for t in (x, w1, b1, w2, b2)):
         raise ValueError("swiglu is forward only (the TPU kernel has no backward); "
                          "an input requires grad")
+    tm = default_tile(C) if tm is None else tm
     _check_shape(M, C, F, tm)  # the shapes and tiles the kernel takes, on the CPU too
     for t in (w1, b1, w2, b2):
         if t.device != x.device:
             raise ValueError(f"all inputs must be on {x.device}, got {t.device}")
+    return tm
 
 
-def swiglu(x, w1, b1, w2, b2, tm=DEFAULT_TILE):
+def swiglu(x, w1, b1, w2, b2, tm=None):
     """y = bf16(bf16(silu(h1) * h2) @ w2 + b2) with h = x @ w1 + b1 in fp32.
 
     Args:
         x: (M, C) bf16 rows; any M >= 1 (every row is written).
         w1: (C, 2F) bf16, gate columns first; b1: (2F,) or (1, 2F) fp32.
-        w2: (F, C) bf16; b2: (C,) or (1, C) fp32. C <= 256.
-        tm: rows a block of the kernel owns, one of ``ROW_TILES`` (checked
-            on the CPU too, where the plain version has no tiles).
+        w2: (F, C) bf16; b2: (C,) or (1, C) fp32. C <= 512.
+        tm: rows a block of the kernel owns, one of ``row_tiles(C)``;
+            None takes ``default_tile(C)`` (checked on the CPU too, where
+            the plain version has no tiles).
 
     Returns:
         (M, C) bf16.
     """
-    _check(x, w1, b1, w2, b2, tm)
+    tm = _check(x, w1, b1, w2, b2, tm)
     if x.device.type == "cpu":
         return swiglu_fused_ref(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"swiglu runs on cpu or cuda tensors, got {x.device}")
-    M, C = x.shape
-    F = w2.shape[0]
     x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
     b1, b2 = b1.reshape(-1).contiguous(), b2.reshape(-1).contiguous()
+    M, C = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = swiglu_plan(M, C, F, tm, sms)
-    aligned = plan.aligned and all(t.data_ptr() % 16 == 0 for t in (x, w1, w2))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w1, w2))
+    return launch(x, w1, b1, w2, b2, tm, swiglu_plan(M, C, w2.shape[0], tm, sms,
+                                                     aligned=aligned))
+
+
+def launch(x, w1, b1, w2, b2, tm, plan):
+    """The kernel on contiguous CUDA tensors as ``swiglu`` checked them,
+    with b1 and b2 flat, under ``plan`` (``swiglu_plan``'s, which the
+    kernel checks again); returns y. ``swiglu`` calls it with its plan,
+    the A/B script with others too. Counts the launch."""
+    M, C = x.shape
+    F = w2.shape[0]
     y = torch.empty((M, C), dtype=torch.bfloat16, device=x.device)
     fn = load_kernel()
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                y.data_ptr(), M, C, F, tm, plan.grid, plan.cluster, plan.smem, int(aligned),
+                y.data_ptr(), M, C, F, tm, plan.grid, plan.multicast, plan.fsplit, plan.stages,
+                plan.chunk, plan.smem, int(plan.aligned),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"swiglu_fwd launch failed with CUDA error {rc}")

@@ -12,7 +12,8 @@ Usage (by path, so that ``--root`` picks the package it times):
 
     python turkish_asr_torch/scripts/ab_swiglu.py [--root DIR] [M] [C] [F]
 
-(defaults 6400 256 1024: the flagship FFN, d_model 256, d_ff 1024).
+(defaults 6400 256 1024: the flagship FFN, d_model 256, d_ff 1024;
+Conformer-L's is C=512, F=2048).
 ``--root`` is the root of a checkout of this repository (default: the one
 this file is in); its ``turkish_asr_torch`` is imported and its kernel is
 built there. Two trees compare in one call on one card: a parent commit
@@ -20,12 +21,18 @@ unpacked with ``git archive`` into a git-ignored directory, then parent,
 this tree, this tree, parent.
 
 It prints the card and the checkout, one line per row tile the checkout's
-kernel offers, then the fused plain version's line and the chain's, each
-as device ms per call (20 calls queued behind a spin kernel,
-``ab_attention.device_ms``) and CUDA-event ms over 50 chained calls in
-which each call's y is the next call's x (which also counts the host's
-gaps), and last a JSON object of all times. It needs a CUDA card and
-raises without one.
+kernel takes at this C (a tile or a C the checkout refuses is printed as
+refused: the kernels before Conformer-L's width took C <= 256), a line
+per tile with two row tiles sharing each weight slot (TMA multicast,
+where the checkout offers it), then the fused plain version's line, the
+chain's, and cuBLAS's two bf16 products alone (x @ w1 and g @ w2, a
+yardstick of what a finished Hopper GEMM does with the same flops; the
+port never calls them), each as device ms per call (20 calls queued
+behind a spin kernel, ``ab_attention.device_ms``) and CUDA-event ms over
+50 chained calls in which each call's y is the next call's x (which also
+counts the host's gaps; the products' line has no chained time), and
+last a JSON object of all times. It needs a CUDA card and raises without
+one.
 """
 
 import argparse
@@ -71,8 +78,9 @@ def _max_err(a, b):
 
 def main(argv=None):
     """Runs the A/B; returns {"root", "M", "C", "F", "tiles": {tm: {"ms",
-    "chained_ms", "max_err"}}, "plain": {...}, "chain": {"ms",
-    "chained_ms"}}, max_err against the chain."""
+    "chained_ms", "max_err"} or {"refused": message}}, "multicast": {tm:
+    {...}}, "plain": {...}, "chain": {"ms", "chained_ms"}, "cublas_products":
+    {"ms"}}, max_err against the chain."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                         help="root of the checkout whose turkish_asr_torch is timed")
@@ -94,23 +102,46 @@ def main(argv=None):
     print(f"{torch.cuda.get_device_name(0)}; checkout {root}", flush=True)
     x, *rest = sw.args_from_numpy(*make_inputs(M, C, F), "cuda")
     y0 = swiglu_chain(x, *rest)
-    result = {"root": str(root), "M": M, "C": C, "F": F, "tiles": {}}
+    result = {"root": str(root), "M": M, "C": C, "F": F, "tiles": {}, "multicast": {}}
 
     def times(fn):
         return {"ms": device_ms(lambda: fn(x, *rest)), "chained_ms": timeit_chained(fn, x, rest)}
 
+    def report(label, fn):
+        r = dict(times(fn), max_err=_max_err(fn(x, *rest), y0))
+        print(f"{label}: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} ms "
+              f"(max err vs chain {r['max_err']:.2e})", flush=True)
+        return r
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for tm in sw.ROW_TILES:
         def fused(a, *more, tm=tm):
             return sw.swiglu(a, *more, tm=tm)
-        r = result["tiles"][tm] = dict(times(fused), max_err=_max_err(fused(x, *rest), y0))
-        print(f"cuda tm={tm:3d}: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} ms "
-              f"(max err vs chain {r['max_err']:.2e})", flush=True)
-    r = result["plain"] = dict(times(swiglu_fused_ref),
-                               max_err=_max_err(swiglu_fused_ref(x, *rest), y0))
-    print(f"fused plain: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} ms "
-          f"(max err vs chain {r['max_err']:.2e})", flush=True)
+        try:
+            sw.swiglu(x, *rest, tm=tm)
+        except ValueError as e:  # a row tile or a C this checkout does not take
+            result["tiles"][tm] = {"refused": str(e)}
+            print(f"cuda tm={tm:3d}: refused ({e})", flush=True)
+            continue
+        result["tiles"][tm] = report(f"cuda tm={tm:3d}", fused)
+        if hasattr(sw, "launch"):  # the plan's multicast option
+            plan = sw.swiglu_plan(M, C, F, tm, sms, multicast=2)
+            b1, b2 = rest[1].reshape(-1), rest[3].reshape(-1)
+
+            def shared(a, w1, _b1, w2, _b2, tm=tm, plan=plan):
+                return sw.launch(a, w1, b1, w2, b2, tm, plan)
+            result["multicast"][tm] = report(
+                f"cuda tm={tm:3d} multicast 2 (clusters {plan.cluster})", shared)
+    result["plain"] = report("fused plain", swiglu_fused_ref)
     r = result["chain"] = times(swiglu_chain)
     print(f"chain: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} ms M={M} C={C} F={F}",
+          flush=True)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal((M, F), dtype=np.float32)
+                         ).to(torch.bfloat16).cuda()
+    w1, w2 = rest[0], rest[2]
+    r = result["cublas_products"] = {
+        "ms": device_ms(lambda: (torch.matmul(x, w1), torch.matmul(g, w2)))}
+    print(f"cublas products (x @ w1, g @ w2; unused by the port): device {r['ms']:.4f} ms",
           flush=True)
     print(json.dumps(result))
     return result
