@@ -437,7 +437,7 @@ def build_phase():
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")  # wgmma, mma.sync, TMA tile loads
 SASS_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv", "flash_bwd_dq")  # the bf16 products' kernels
-# swiglu_fwd_kernel<kSplit, kTma, kMc>: the instance's TMA flag from its name
+# swiglu_fwd_kernel<kSplit, kTma>: the instance's TMA flag from its name
 _SWIGLU_INSTANCE = re.compile(r"swiglu_fwd_kernelILb[01]ELb([01])E")
 
 
@@ -915,9 +915,9 @@ def swiglu_phase():
                                      f"(2^-7 max|plain|)")
             worst = max(worst, e)
         plans = {tm: sw.swiglu_plan(M, C, F, tm, sms) for tm in sw.row_tiles(C)}
-        fsplits.update(p.fsplit for p in plans.values())
+        fsplits.update(p.cluster for p in plans.values())
         print(f"swiglu {label}: every row finite at tm {sw.row_tiles(C)} (plans (grid, "
-              f"fsplit) {({tm: (p.grid, p.fsplit) for tm, p in plans.items()})}), "
+              f"fsplit) {({tm: (p.grid, p.cluster) for tm, p in plans.items()})}), "
               f"max|kernel - plain| {worst:.3e} (tol {tol:.3e})", flush=True)
         return worst
 

@@ -98,17 +98,17 @@ ATTENTION_SASS = """
         /*0010*/                   EXIT ;
 		Function : _ZN12_GLOBAL__N_120flash_bwd_sum_chunksEPK6float4PS0_S3_im
         /*0000*/                   EXIT ;
-		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb1ELi1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
         /*0000*/                   UTMALDG.3D [UR8], [UR4] ;
         /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4].tnspB, R24 ;
         /*0020*/                   EXIT ;
-		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb0ELi1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb0EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
         /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4].tnspB, R24 ;
         /*0010*/                   EXIT ;
-		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb1ELi2EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
         /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4].tnspB, R24 ;
         /*0010*/                   EXIT ;
-		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb0ELi1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+		Function : _ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb0EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
         /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
         /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4].tnspB, R24 ;
         /*0020*/                   EXIT ;
@@ -137,8 +137,8 @@ def test_attention_sass_check_names_bf16_instances_without_wgmma():
     assert missing == [
         "_ZN12_GLOBAL__N_114flash_bwd_dkdvI13__nv_bfloat16Li64ELb1EEEv14CUtensorMap_st",
         # SwiGLU: a TMA instance (second flag 1) without UTMALDG, one with HMMA
-        "_ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb1ELi2EEEv14CUtensorMap_stS1_S1_NS_6ParamsE",
-        "_ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb0ELi1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE"]
+        "_ZN12_GLOBAL__N_117swiglu_fwd_kernelILb1ELb1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE",
+        "_ZN12_GLOBAL__N_117swiglu_fwd_kernelILb0ELb0EEEv14CUtensorMap_stS1_S1_NS_6ParamsE"]
 
 
 PTXAS_LOG = """ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'

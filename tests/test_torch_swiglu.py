@@ -201,14 +201,13 @@ def _check_plan(p, M, F, tm):
     132 SMs."""
     chunk = sw.INSTANCES[tm]["chunk"]
     assert (p.chunk, p.stages, p.groups) == (chunk, sw.INSTANCES[tm]["stages"], 3)
-    assert p.fsplit in sw.FSPLITS and p.fsplit <= -(-F // chunk)
-    assert p.cluster == p.multicast * p.fsplit <= sw.MAX_CLUSTER
+    assert p.cluster in sw.FSPLITS and p.cluster <= -(-F // chunk)
     assert p.grid % p.cluster == 0
-    tiles = p.grid // p.fsplit
-    assert tiles * tm >= M > (tiles - p.multicast) * tm
+    tiles = p.grid // p.cluster
+    assert tiles * tm >= M > (tiles - 1) * tm
     assert p.smem <= SMEM
-    assert 2 * p.grid >= SMS or p.fsplit == min(sw.MAX_CLUSTER // p.multicast, -(-F // chunk))
-    assert p.fsplit == 1 or 2 * tiles * (p.fsplit // 2) < SMS
+    assert 2 * p.grid >= SMS or p.cluster == min(sw.FSPLITS[-1], -(-F // chunk))
+    assert p.cluster == 1 or 2 * tiles * (p.cluster // 2) < SMS
 
 
 @pytest.mark.parametrize("tm", sw.ROW_TILES)
@@ -217,7 +216,7 @@ def test_plan_covers_the_rows_within_shared_memory(M, tm):
     """The flagship FFN (C=256, F=1024) at both row tiles."""
     p = sw.swiglu_plan(M, 256, 1024, tm, SMS)
     _check_plan(p, M, 1024, tm)
-    assert p.aligned and p.multicast == 1
+    assert p.aligned
 
 
 @pytest.mark.parametrize("M", [1, 5, 301, 6404, 25616])
@@ -228,32 +227,28 @@ def test_plan_at_conformer_l_width(M):
     assert sw.row_tiles(512) == (64,)
     p = sw.swiglu_plan(M, 512, 2048, 64, SMS)
     _check_plan(p, M, 2048, 64)
-    assert p.aligned and p.multicast == 1
-    assert p.fsplit == {1: 8, 5: 8, 301: 8, 6404: 1, 25616: 1}[M]
+    assert p.aligned
+    assert p.cluster == {1: 8, 5: 8, 301: 8, 6404: 1, 25616: 1}[M]
 
 
 @pytest.mark.parametrize("C,F", [(512, 2044), (508, 2048), (505, 1999)])
 def test_plan_takes_the_copy_path_at_conformer_l_width(C, F):
     """C % 8 or F % 8 off 0 near Conformer-L's width: no tensor map, the
-    producer's element copies, and no multicast."""
+    producer's element copies."""
     p = sw.swiglu_plan(6404, C, F, 64, SMS)
     _check_plan(p, 6404, F, 64)
     assert not p.aligned
-    with pytest.raises(ValueError, match="multicast"):
-        sw.swiglu_plan(6404, C, F, 64, SMS, multicast=2)
 
 
 @pytest.mark.parametrize("M,tm", [(6400, 128), (6401, 128), (6404, 64), (1, 64)])
-def test_plan_with_multicast_pairs_the_row_tiles(M, tm):
-    """multicast=2 (the A/B's alternative): clusters hold two row tiles of
-    every F split, an odd tile count gets a tile past M, and the cluster
-    stays within 8 blocks."""
-    F = 1024 if tm == 128 else 2048
-    p = sw.swiglu_plan(M, 256 if tm == 128 else 512, F, tm, SMS, multicast=2)
-    _check_plan(p, M, F, tm)
-    assert p.multicast == 2 and (p.grid // p.fsplit) % 2 == 0
-    with pytest.raises(ValueError, match="multicast"):
-        sw.swiglu_plan(M, 256, 1024, 64, SMS, multicast=2, aligned=False)
+def test_plan_of_the_copy_path_launches_as_the_tma_path(M, tm):
+    """Unaligned tensors (the copy path) run the same grid, cluster, ring
+    and shared memory as the TMA path: the producer fills the same slots."""
+    C, F = (256, 1024) if tm == 128 else (512, 2048)
+    p, q = sw.swiglu_plan(M, C, F, tm, SMS), sw.swiglu_plan(M, C, F, tm, SMS, aligned=False)
+    _check_plan(q, M, F, tm)
+    assert p.aligned and not q.aligned
+    assert p._replace(aligned=False) == q
 
 
 def test_plan_at_the_a_b_shapes():
@@ -288,7 +283,7 @@ def test_plan_takes_the_aligned_copies_exactly_where_they_fit(C, F):
         p = sw.swiglu_plan(6400, C, F, tm, SMS)
         assert p.aligned == (C % 8 == 0 and F % 8 == 0)
         assert not sw.swiglu_plan(6400, C, F, tm, SMS, aligned=False).aligned
-        assert p.fsplit <= -(-F // sw.INSTANCES[tm]["chunk"])
+        assert p.cluster <= -(-F // sw.INSTANCES[tm]["chunk"])
 
 
 @pytest.mark.parametrize("M,C,F,tm,match", [(0, 8, 8, 64, "M >= 1"), (4, 520, 8, 64, "C <= 512"),

@@ -90,18 +90,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// An arrival on the barrier at `bar`'s offset in the shared memory of
-// cluster CTA `cta` (this CTA's own rank included). Default semantics:
-// `.release.cluster` compiles to a GPU-wide memory barrier (MEMBAR.ALL.GPU)
-// before every arrival.
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_u32(bar)), "r"(cta));
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
-}
-
 // A ring position: stage and the parity of its current round.
 struct Ring {
   int stage = 0;
@@ -143,20 +131,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// The same box into the same shared-memory offset of every CTA of the
-// cluster in cta_mask (bit r: rank r), each CTA's barrier at `bar`'s
-// offset counting the bytes it receives.
-__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
-                                                      uint64_t* bar, int c0, int c1, int c2,
-                                                      uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "h"(cta_mask)
       : "memory");
 }
 
@@ -304,18 +278,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       ", %64, %65, p, 1, 1, %67, %68;\n}\n"
       : HOPPER_ACC64(d)
       : "l"(a), "l"(b), "r"(accumulate), "n"(tA), "n"(tB));
-}
-
-// The same with A from registers.
-template <int tB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : HOPPER_ACC64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(tB));
 }
 
 }  // namespace hopper

@@ -7,8 +7,8 @@ raise. Forward only, as the TPU kernel: an input that requires grad is
 refused. ``swiglu.launches`` counts the kernel launches.
 
 ``swiglu_plan`` is the kernel's launch arithmetic, in Python so that the
-CPU tests hold it: the grid, the thread-block cluster (row tiles sharing
-weight slots, blocks splitting F), the ring, the shared memory and the
+CPU tests hold it: the grid, the thread-block cluster (blocks splitting
+F), the ring, the shared memory and the
 copy path, which the kernel takes from it and checks.
 """
 
@@ -40,12 +40,10 @@ SLOT = 32768  # bytes of a ring slot
 X_TILE = 65536  # bytes of the x tile: 128 x 256 or 64 x 512 bf16
 G_TILES = 32768  # the g tiles: two buffers of 64 x 128 bf16
 WARPGROUPS = 3  # two consumer warpgroups and a producer warpgroup a block
-FSPLITS = (1, 2, 4, 8)  # blocks of a cluster that split F
-MULTICASTS = (1, 2)  # row tiles of a cluster that share each weight slot (TMA multicast)
-MAX_CLUSTER = 8  # the portable most
+FSPLITS = (1, 2, 4, 8)  # blocks of a cluster that split F; 8 is the portable most
 _count_lock = threading.Lock()
 
-Plan = namedtuple("Plan", "grid cluster smem aligned stages chunk groups multicast fsplit")
+Plan = namedtuple("Plan", "grid cluster smem aligned stages chunk groups")
 
 
 def default_tile(C):
@@ -70,52 +68,44 @@ def _check_shape(M, C, F, tm):
                          f"tm=64 takes C <= {MAX_C}")
 
 
-def swiglu_plan(M, C, F, tm, sms, multicast=1, aligned=True):
+def swiglu_plan(M, C, F, tm, sms, aligned=True):
     """The launch of ``csrc/swiglu_fwd.cu`` for x (M, C) and F hidden
     units at ``tm`` rows a block on a card of ``sms`` SMs: ``grid``
     blocks of ``groups`` warpgroups (two consumers and a TMA producer) in
-    clusters of ``cluster`` = ``multicast`` x ``fsplit`` blocks:
-    ``multicast`` row tiles that share each weight slot through TMA
-    multicast, ``fsplit`` blocks on the same rows that split F's
+    clusters of ``cluster`` blocks on the same rows that split F's
     ``chunk``-unit chunks; ``stages`` 32 KB ring slots, ``smem`` bytes of
     shared memory a block (the x tile, the ring, the g tiles, the barriers
     and the 1024-byte alignment; the partial y of an F split reuses them),
     and whether the ``aligned`` path serves: TMA needs C % 8 == 0 and F %
     8 == 0 (16-byte row strides of x, w2 and each half of w1) and 16-byte
     aligned tensors (``aligned=False`` says they are not); otherwise the
-    producer copies the same tiles element by element, and there is no
-    multicast. The kernel refuses any other plan.
+    producer copies the same tiles element by element. The kernel refuses
+    any other plan.
 
     tm=128 (C <= 256) holds y for 64 rows a consumer warpgroup; tm=64 (C
     <= 512, Conformer-L's 512 included) shares 64 rows between the two,
     which split y's columns. A block takes an SM of its own (its shared
-    memory), so ``fsplit`` is the fewest blocks that put a block on at
+    memory), so the cluster is the fewest blocks that put a block on at
     least half of the card's SMs, and no more than there are chunks:
     beyond that, splitting F adds a second wave of blocks and the sum of
-    the partial y's without shortening the first. ``multicast`` defaults
-    to 1: sharing the slots between two row tiles measured 1-8% slower at
-    every A/B shape on the H100 (PERF.md); 2 is there to A/B it
-    (``turkish_asr_torch/scripts/ab_swiglu.py``)."""
+    the partial y's without shortening the first. (Clusters of two row
+    tiles that shared each weight slot through TMA multicast measured 1-8%
+    slower at every A/B shape on the H100, PERF.md, and were dropped.)"""
     _check_shape(M, C, F, tm)
     aligned = aligned and C % 8 == 0 and F % 8 == 0
-    if multicast not in MULTICASTS or (multicast > 1 and not aligned):
-        raise ValueError(f"multicast must be one of {MULTICASTS}, and 1 without the aligned "
-                         f"(TMA) path; got {multicast}, aligned={aligned}")
     inst = INSTANCES[tm]
     tiles, chunks = -(-M // tm), -(-F // inst["chunk"])
-    fits = [s for s in FSPLITS if s <= chunks and multicast * s <= MAX_CLUSTER]
+    fits = [s for s in FSPLITS if s <= chunks]
     fsplit = next((s for s in fits if 2 * tiles * s >= sms), fits[-1])
     stages = inst["stages"]
     smem = X_TILE + stages * SLOT + G_TILES + 8 * (2 * stages + 1) + 1024
-    grid = -(-tiles // multicast) * multicast * fsplit
-    return Plan(grid, multicast * fsplit, smem, aligned, stages, inst["chunk"], WARPGROUPS,
-                multicast, fsplit)
+    return Plan(tiles * fsplit, fsplit, smem, aligned, stages, inst["chunk"], WARPGROUPS)
 
 
 def load_kernel():
     fn = load_library("swiglu_fwd", SOURCES).swiglu_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     return fn
 
 
@@ -168,26 +158,16 @@ def swiglu(x, w1, b1, w2, b2, tm=None):
     x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
     b1, b2 = b1.reshape(-1).contiguous(), b2.reshape(-1).contiguous()
     M, C = x.shape
+    F = w2.shape[0]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w1, w2))
-    return launch(x, w1, b1, w2, b2, tm, swiglu_plan(M, C, w2.shape[0], tm, sms,
-                                                     aligned=aligned))
-
-
-def launch(x, w1, b1, w2, b2, tm, plan):
-    """The kernel on contiguous CUDA tensors as ``swiglu`` checked them,
-    with b1 and b2 flat, under ``plan`` (``swiglu_plan``'s, which the
-    kernel checks again); returns y. ``swiglu`` calls it with its plan,
-    the A/B script with others too. Counts the launch."""
-    M, C = x.shape
-    F = w2.shape[0]
+    plan = swiglu_plan(M, C, F, tm, sms, aligned=aligned)
     y = torch.empty((M, C), dtype=torch.bfloat16, device=x.device)
     fn = load_kernel()
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                y.data_ptr(), M, C, F, tm, plan.grid, plan.multicast, plan.fsplit, plan.stages,
-                plan.chunk, plan.smem, int(plan.aligned),
-                torch.cuda.current_stream(x.device).cuda_stream)
+                y.data_ptr(), M, C, F, tm, plan.grid, plan.cluster, plan.stages, plan.chunk,
+                plan.smem, int(plan.aligned), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"swiglu_fwd launch failed with CUDA error {rc}")
     with _count_lock:

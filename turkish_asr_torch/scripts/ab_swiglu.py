@@ -22,9 +22,8 @@ this tree, this tree, parent.
 
 It prints the card and the checkout, one line per row tile the checkout's
 kernel takes at this C (a tile or a C the checkout refuses is printed as
-refused: the kernels before Conformer-L's width took C <= 256), a line
-per tile with two row tiles sharing each weight slot (TMA multicast,
-where the checkout offers it), then the fused plain version's line, the
+refused: the kernels before Conformer-L's width took C <= 256), then the
+fused plain version's line, the
 chain's, and cuBLAS's two bf16 products alone (x @ w1 and g @ w2, a
 yardstick of what a finished Hopper GEMM does with the same flops; the
 port never calls them), each as device ms per call (20 calls queued
@@ -78,9 +77,9 @@ def _max_err(a, b):
 
 def main(argv=None):
     """Runs the A/B; returns {"root", "M", "C", "F", "tiles": {tm: {"ms",
-    "chained_ms", "max_err"} or {"refused": message}}, "multicast": {tm:
-    {...}}, "plain": {...}, "chain": {"ms", "chained_ms"}, "cublas_products":
-    {"ms"}}, max_err against the chain."""
+    "chained_ms", "max_err"} or {"refused": message}}, "plain": {...},
+    "chain": {"ms", "chained_ms"}, "cublas_products": {"ms"}}, max_err
+    against the chain."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                         help="root of the checkout whose turkish_asr_torch is timed")
@@ -102,7 +101,7 @@ def main(argv=None):
     print(f"{torch.cuda.get_device_name(0)}; checkout {root}", flush=True)
     x, *rest = sw.args_from_numpy(*make_inputs(M, C, F), "cuda")
     y0 = swiglu_chain(x, *rest)
-    result = {"root": str(root), "M": M, "C": C, "F": F, "tiles": {}, "multicast": {}}
+    result = {"root": str(root), "M": M, "C": C, "F": F, "tiles": {}}
 
     def times(fn):
         return {"ms": device_ms(lambda: fn(x, *rest)), "chained_ms": timeit_chained(fn, x, rest)}
@@ -113,7 +112,6 @@ def main(argv=None):
               f"(max err vs chain {r['max_err']:.2e})", flush=True)
         return r
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for tm in sw.ROW_TILES:
         def fused(a, *more, tm=tm):
             return sw.swiglu(a, *more, tm=tm)
@@ -124,14 +122,6 @@ def main(argv=None):
             print(f"cuda tm={tm:3d}: refused ({e})", flush=True)
             continue
         result["tiles"][tm] = report(f"cuda tm={tm:3d}", fused)
-        if hasattr(sw, "launch"):  # the plan's multicast option
-            plan = sw.swiglu_plan(M, C, F, tm, sms, multicast=2)
-            b1, b2 = rest[1].reshape(-1), rest[3].reshape(-1)
-
-            def shared(a, w1, _b1, w2, _b2, tm=tm, plan=plan):
-                return sw.launch(a, w1, b1, w2, b2, tm, plan)
-            result["multicast"][tm] = report(
-                f"cuda tm={tm:3d} multicast 2 (clusters {plan.cluster})", shared)
     result["plain"] = report("fused plain", swiglu_fused_ref)
     r = result["chain"] = times(swiglu_chain)
     print(f"chain: device {r['ms']:.4f} ms, chained {r['chained_ms']:.4f} ms M={M} C={C} F={F}",
