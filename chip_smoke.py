@@ -399,25 +399,21 @@ def kernel_bounds(name, **shape):
     return bound
 
 
+LAUNCH_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd", "dropout_mask", "ctc_fwd",
+                   "ctc_bwd", "swiglu_fwd")
+
+
 def _counts():
-    from turkish_asr_torch.ops.ctc import ctc_loss
-    from turkish_asr_torch.ops.flash_attention import dump_keep_mask, flash_attention
-    from turkish_asr_torch.ops.swiglu import swiglu
-    return {"flash_attention_fwd": flash_attention.launches,
-            "flash_attention_bwd": flash_attention.launches_bwd,
-            "dropout_mask": dump_keep_mask.launches,
-            "ctc_fwd": ctc_loss.launches_fwd, "ctc_bwd": ctc_loss.launches_bwd,
-            "swiglu_fwd": swiglu.launches}
+    """The kernel wrappers' launch counters (``utils/tracing.py``)."""
+    from turkish_asr_torch.utils import tracing
+    counters = tracing.counters()
+    return {name: counters.get(name, 0) for name in LAUNCH_COUNTERS}
 
 
-def _reset_counts():
-    from turkish_asr_torch.ops.ctc import ctc_loss
-    from turkish_asr_torch.ops.flash_attention import dump_keep_mask, flash_attention
-    from turkish_asr_torch.ops.swiglu import swiglu
-    flash_attention.launches = flash_attention.launches_bwd = 0
-    dump_keep_mask.launches = 0
-    ctc_loss.launches_fwd = ctc_loss.launches_bwd = 0
-    swiglu.launches = 0
+def _reset_counts(*names):
+    """Set the launch counters ``names`` (all six, with none given) to 0."""
+    from turkish_asr_torch.utils import tracing
+    tracing.reset_counters(*(names or LAUNCH_COUNTERS))
 
 
 def build_phase():
@@ -880,9 +876,9 @@ def swiglu_phase():
     print(f"swiglu_fwd: {len(sass)} instances, no spills; HMMA in the library: "
           f"{sum(c['HMMA'] for c in sass.values())}", flush=True)
 
-    sw.swiglu.launches = 0
+    _reset_counts("swiglu_fwd")
     ab = [ab_swiglu.main([str(M), str(C), str(F)]) for M, C, F in SWIGLU_SHAPES]
-    launches = sw.swiglu.launches
+    launches = _counts()["swiglu_fwd"]
     if launches == 0:
         raise AssertionError("the SwiGLU A/B launched no kernel")
     print(f"kernel launches in the SwiGLU A/B runs: {launches}", flush=True)
@@ -1176,7 +1172,6 @@ def serving_phase(workdir):
     from turkish_asr_torch.models import attention
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
     from turkish_asr_torch.ops._flash_attention import flash_attention_fwd_ref
-    from turkish_asr_torch.ops.flash_attention import flash_attention
     from turkish_asr_torch.serve.server import ASRService, ServerConfig, make_stdlib_server
 
     cfg = ModelConfig(n_mels=80, d_model=256, n_heads=4, n_blocks=8, n_classes=56, dropout=0.0)
@@ -1208,7 +1203,7 @@ def serving_phase(workdir):
             return f.read()
 
     try:
-        flash_attention.launches = 0
+        _reset_counts("flash_attention_fwd")
         forwards = 0
         with urllib.request.urlopen(base + "/health", timeout=60) as resp:
             health = json.loads(resp.read())
@@ -1229,10 +1224,10 @@ def serving_phase(workdir):
             raise AssertionError(f"/transcribe?timestamps=1: {status} {payload}")
         print(f"POST /transcribe?timestamps=1 s8: {ms:.2f} ms, "
               f"{len(payload['segments'])} segments", flush=True)
-        before = flash_attention.launches
+        before = _counts()["flash_attention_fwd"]
         status, payload, ms = _post(base + "/transcribe/batch",
                                     [("files", n + ".wav", read(n)) for n in ("b3", "b35", "b4")])
-        batch_launches = flash_attention.launches - before
+        batch_launches = _counts()["flash_attention_fwd"] - before
         forwards += 1  # all three fall in the 4 s bucket: one batched forward
         results = payload.get("results") or []
         if status != 200 or len(results) != 3 or any(
@@ -1247,7 +1242,7 @@ def serving_phase(workdir):
                                  f"{cfg.n_blocks}")
         print(f"POST /transcribe/batch 3 files: {ms:.2f} ms, {batch_launches} attention forward "
               f"launches (one batched forward)", flush=True)
-        launches = flash_attention.launches
+        launches = _counts()["flash_attention_fwd"]
     finally:
         server.shutdown()
         server.server_close()
@@ -1399,7 +1394,6 @@ def beam_phase(workdir):
     from turkish_asr_torch.decode.beam import CTCBeamDecoder
     from turkish_asr_torch.inference import ASRInference
     from turkish_asr_torch.ops.beam_search import ctc_beam_search, prepare_lm
-    from turkish_asr_torch.ops.flash_attention import flash_attention
     from turkish_asr_torch.scripts.synthetic_arpa import PRODUCTION, synthetic_word_arpa
     from turkish_asr_torch.serve.server import ASRService, ServerConfig, make_stdlib_server
 
@@ -1456,7 +1450,7 @@ def beam_phase(workdir):
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    launches = flash_attention.launches
+    launches = _counts()["flash_attention_fwd"]
     served = {"single_ms": ms_single, "forward_ms": fwd, "beam_ms": beam_ms,
               "batch_ms": ms_batch, "batch_forward_ms": fwd_b, "batch_beam_ms": beam_b,
               "first_single_ms": first[0], "first_batch_ms": first[1]}
@@ -1729,7 +1723,6 @@ def remat_phase():
     """One bf16 training step at B=32, T' <= 200 for each recomputation
     policy: peak memory, wall ms (median of REMAT_REPS), forward launches;
     and the fp32 gradients of dots against full."""
-    from turkish_asr_torch.ops.flash_attention import flash_attention
     batch = _train_batch(32, 60)
     out = {}
     for policy in REMAT_POLICIES:
@@ -1743,12 +1736,12 @@ def remat_phase():
         base = torch.cuda.memory_allocated()
         times, launches = [], []
         for _ in range(REMAT_REPS):
-            before = flash_attention.launches
+            before = _counts()["flash_attention_fwd"]
             torch.cuda.synchronize()
             start = time.perf_counter()
             tr.train_step(batch, next(seed))  # ends in a host read of the loss
             times.append((time.perf_counter() - start) * 1e3)
-            launches.append(flash_attention.launches - before)
+            launches.append(_counts()["flash_attention_fwd"] - before)
         out[policy] = {"wall_ms": statistics.median(times),
                        "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
                        "peak_over_state_mb": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
@@ -1811,7 +1804,6 @@ def export_phase(workdir, ckpt):
     the loaded program against the eager model, and its launches."""
     from turkish_asr_torch import export_model
     from turkish_asr_torch.audio.features import log_mel_spectrogram
-    from turkish_asr_torch.ops.flash_attention import flash_attention
     from turkish_asr_torch.scripts.ab_attention import _wall_ms
     from turkish_asr_torch.utils.weights import load_ckpt
 
@@ -1833,10 +1825,10 @@ def export_phase(workdir, ckpt):
     launches = 0
     for name, x in inputs.items():
         with torch.no_grad():
-            before = flash_attention.launches
+            before = _counts()["flash_attention_fwd"]
             got = program(x)
             torch.cuda.synchronize()
-            n = flash_attention.launches - before
+            n = _counts()["flash_attention_fwd"] - before
             want = model(x, None, torch.float32)
             err = (got - want).abs().max().item()
             numbers[name] = {"max_abs_err": err, "fwd_launches": n,
@@ -1858,11 +1850,10 @@ def export_phase(workdir, ckpt):
 def memorize_phase():
     """The five-word memorization of tests/test_torch_overfit.py on the
     card, bf16, through the kernels."""
-    from turkish_asr_torch.ops.flash_attention import flash_attention
     from turkish_asr_torch.scripts.overfit import STEPS, WORDS, memorize
-    before = flash_attention.launches
+    before = _counts()["flash_attention_fwd"]
     result = memorize("cuda", torch.bfloat16)
-    launches = flash_attention.launches - before
+    launches = _counts()["flash_attention_fwd"] - before
     print(f"memorization: loss {result['first_loss']:.4f} -> {result['final_loss']:.4f} in "
           f"{STEPS} steps ({result['seconds']:.3f} s), texts {result['texts']}, "
           f"{launches} attention forward launches", flush=True)
@@ -2505,7 +2496,6 @@ def multichip_served(workdir, pt):
     MULTICHIP_CARDS replicas (median of ``reps`` after two warm-ups)."""
     from turkish_asr_torch.audio.wavio import write_wav
     from turkish_asr_torch.inference import ASRInference
-    from turkish_asr_torch.ops.flash_attention import flash_attention
     from turkish_asr_torch.scripts.synthetic_arpa import synthetic_word_arpa
     cards = MULTICHIP_CARDS
     tmp = os.path.join(workdir, "served_mc")
@@ -2559,7 +2549,7 @@ def multichip_served(workdir, pt):
             asr._forward_batch(wav, lens)
         _all_cards_sync()
         ms = []
-        launches = flash_attention.launches
+        launches = _counts()["flash_attention_fwd"]
         for _ in range(reps):
             start = time.perf_counter()
             logits, _ = asr._forward_batch(wav, lens)
@@ -2567,7 +2557,7 @@ def multichip_served(workdir, pt):
             ms.append((time.perf_counter() - start) * 1e3)
         numbers["forward"][name] = {"replicas": len(asr.replicas), "ms": ms,
                                     "median_ms": statistics.median(ms),
-                                    "attention_launches": (flash_attention.launches
+                                    "attention_launches": (_counts()["flash_attention_fwd"]
                                                            - launches) // reps}
         if tuple(logits.shape[:1]) != (B,) or not torch.isfinite(logits).all():
             raise AssertionError(f"served forward with {name} replicas: {logits.shape}")

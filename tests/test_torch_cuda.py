@@ -48,6 +48,7 @@ from turkish_asr_torch.ops.ctc import ctc_loss
 from turkish_asr_torch.ops._swiglu import swiglu_fused_ref
 from turkish_asr_torch.ops.flash_attention import _check, dump_keep_mask, flash_attention
 from turkish_asr_torch.scripts import ab_swiglu
+from turkish_asr_torch.utils import tracing
 
 
 @pytest.fixture
@@ -55,6 +56,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     return torch.device("cuda")
+
+
+def _launches(name):
+    """A kernel wrapper's launch counter (``utils/tracing.py``)."""
+    return tracing.counters()[name]
 
 
 def _inputs(B, H, Kh, T, D, lengths, dtype, device, seed=0):
@@ -86,11 +92,11 @@ ATTENTION_SHAPES = [(3, 1, 201, 64), (3, 4, 37, 64), (3, 1, 70, 128), (3, 2, 9, 
 def test_kernel_matches_plain_version(cuda, dtype, atol, B, Kh, T, D, rate):
     H = 4 if Kh != 2 else 2
     q, k, v, mask = _inputs(B, H, Kh, T, D, _lengths(B, T), dtype, cuda)
-    before = flash_attention.launches
+    before = _launches("flash_attention_fwd")
     out, lse = flash_attention(q, k, v, mask, rate, 7)
     want_out, want_lse = flash_attention_fwd_ref(q, k, v, mask, rate, 7)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert _launches("flash_attention_fwd") == before + 1
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
     torch.testing.assert_close(out, want_out, rtol=0, atol=atol)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
@@ -172,11 +178,11 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, B, Kh, T, D, rate):
     want = flash_attention_fwd_stats_ref(q, k, v, mask, rate, 11)
     torch.testing.assert_close(out, want[0], rtol=0, atol=1e-4 if dtype == torch.float32 else 2e-2)
     delta = (g * out).sum(-1)
-    before = flash_attention.launches_bwd
+    before = _launches("flash_attention_bwd")
     got = fa_ops._bwd(q, k, v, mask, m, l, delta, g, rate, 11)
     ref = flash_attention_bwd_ref(q, k, v, mask, m, l, delta, g, rate, 11)
     torch.cuda.synchronize()
-    assert flash_attention.launches_bwd == before + 1
+    assert _launches("flash_attention_bwd") == before + 1
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(1.0, b.abs().max().item()))
@@ -208,12 +214,12 @@ def test_attention_op_is_the_kernel_or_its_plain_version(device, request):
     if device == "cuda":
         request.getfixturevalue("cuda")
     q, k, v, mask = _inputs(3, 4, 1, 201, 64, _lengths(3, 201), torch.float32, device)
-    before = flash_attention.launches
+    before = _launches("flash_attention_fwd")
     got = torch.ops.turkish_asr_torch.flash_attention_fwd(q, k, v, mask, 0.1, 5)
     want = flash_attention_fwd_stats_ref(q, k, v, mask, 0.1, 5)
     if device == "cuda":
         torch.cuda.synchronize()
-    assert flash_attention.launches == before + (device == "cuda")
+    assert _launches("flash_attention_fwd") == before + (device == "cuda")
     for a, b in zip(got, want):
         assert a.dtype == torch.float32 and a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 if device == "cuda" else 0)
@@ -232,11 +238,11 @@ def test_exported_program_launches_the_kernel(cuda, tmp_path):
     export_program(model, cfg, path, cuda)
     program = torch.export.load(path).module()
     x = torch.randn(5, 124, 80, generator=torch.Generator().manual_seed(1)).to(cuda)
-    before = flash_attention.launches
+    before = _launches("flash_attention_fwd")
     with torch.no_grad():
         got = program(x)
         torch.cuda.synchronize()
-        launches = flash_attention.launches - before
+        launches = _launches("flash_attention_fwd") - before
         want = model(x, None, torch.float32)
     assert launches == cfg.n_blocks
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
@@ -290,10 +296,10 @@ def test_dkdv_occupancy_of_the_main_path_instance(cuda, dropout):
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,T", [(4, 201), (2, 9)])
 def test_dump_kernel_is_the_plain_hash(cuda, H, T):
-    before = dump_keep_mask.launches
+    before = _launches("dropout_mask")
     got = dump_keep_mask(3, H, T, 0xC0FFEE, 0.1, cuda)
     torch.cuda.synchronize()
-    assert dump_keep_mask.launches == before + 1
+    assert _launches("dropout_mask") == before + 1
     assert torch.equal(got, keep_mask_ref(0xC0FFEE, 3, H, T, 0.1, cuda))
 
 
@@ -351,7 +357,7 @@ def test_ctc_kernels_match_plain_version(cuda, B, T, V, L):
     than a block's threads), V = 32768, and an impossible alignment (T=6)."""
     lp, tg, il, tl = _ctc_case(B, T, V, L, cuda)
     ext, skip = ctc_topology(tg, 0)
-    before = (ctc_loss.launches_fwd, ctc_loss.launches_bwd)
+    before = (_launches("ctc_fwd"), _launches("ctc_bwd"))
     nll, alpha = ctc_ops._forward(lp, tg, il, tl, 0)
     want_nll, want_alpha = ctc_fwd_ref(lp, ext, skip, il, tl)
     torch.testing.assert_close(nll, want_nll, rtol=1e-5, atol=1e-5)
@@ -359,7 +365,7 @@ def test_ctc_kernels_match_plain_version(cuda, B, T, V, L):
     grad = ctc_ops._backward(lp, tg, il, tl, alpha, nll, cot, 0)
     want = ctc_bwd_ref(lp, ext, skip, il, tl, want_alpha, want_nll, cot)
     torch.cuda.synchronize()
-    assert (ctc_loss.launches_fwd, ctc_loss.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert (_launches("ctc_fwd"), _launches("ctc_bwd")) == (before[0] + 1, before[1] + 1)
     assert torch.isfinite(grad).all()
     torch.testing.assert_close(grad, want, rtol=0, atol=1e-5)
 
@@ -537,10 +543,10 @@ def test_swiglu_kernel_matches_plain_version(cuda, M):
     for tm in sw.ROW_TILES:
         poison = torch.full((M, 256), float("nan"), dtype=torch.bfloat16, device=cuda)
         del poison
-        before = sw.swiglu.launches
+        before = _launches("swiglu_fwd")
         got = sw.swiglu(*args, tm=tm)
         torch.cuda.synchronize()
-        assert sw.swiglu.launches == before + 1
+        assert _launches("swiglu_fwd") == before + 1
         assert got.dtype == torch.bfloat16 and got.shape == (M, 256)
         assert torch.isfinite(got.float()).all(dim=1).all()
         torch.testing.assert_close(got.float(), want, rtol=0,
@@ -609,7 +615,7 @@ def test_swiglu_launches_one_device_kernel(cuda):
 @pytest.mark.cuda
 def test_swiglu_ab_script_prints_its_lines(cuda):
     out = io.StringIO()
-    before = sw.swiglu.launches
+    before = _launches("swiglu_fwd")
     with contextlib.redirect_stdout(out):
         result = ab_swiglu.main(["640", "256", "1024"])
     lines = out.getvalue().splitlines()
@@ -624,7 +630,7 @@ def test_swiglu_ab_script_prints_its_lines(cuda):
     assert re.fullmatch(r"cublas products \(x @ w1, g @ w2; unused by the port\): "
                         r"device [0-9.]+ ms", lines[-2])
     assert json.loads(lines[-1]) == json.loads(json.dumps(result))
-    assert sw.swiglu.launches > before
+    assert _launches("swiglu_fwd") > before
     assert set(result["tiles"]) == set(sw.ROW_TILES) and result["chain"]["ms"] > 0
     assert all(r["ms"] > 0 and r["max_err"] < 0.1 for r in result["tiles"].values())
 
@@ -706,15 +712,15 @@ def test_attention_kernel_is_the_default_and_kernel_off_launches_none(cuda):
     lens = torch.tensor([203, 150], device=cuda)
     logits = {}
     for kernel in (True, False):
-        before = (flash_attention.launches, flash_attention.launches_bwd)
+        before = (_launches("flash_attention_fwd"), _launches("flash_attention_bwd"))
         with torch.no_grad():
             logits[kernel] = model(x, lens, torch.float32, attn_kernel=kernel)
         out, _ = model(x, lens, torch.bfloat16, train=True, seed=3, remat="full",
                        attn_kernel=kernel)
         out.float().square().mean().backward()
         torch.cuda.synchronize()
-        fwd = flash_attention.launches - before[0]
-        bwd = flash_attention.launches_bwd - before[1]
+        fwd = _launches("flash_attention_fwd") - before[0]
+        bwd = _launches("flash_attention_bwd") - before[1]
         if kernel:
             assert (fwd, bwd) == (3 * cfg.n_blocks, cfg.n_blocks)
         else:

@@ -16,6 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 from turkish_asr_tpu.ops._flash_attention_impl import _flash_attention_fwd_impl
 from turkish_asr_torch.ops._flash_attention import flash_attention_fwd_ref
 from turkish_asr_torch.ops.flash_attention import flash_attention
+from turkish_asr_torch.utils import tracing
 
 ATOL = 1e-5
 
@@ -68,11 +69,11 @@ def test_length_zero_row_is_uniform_and_finite():
 
 def test_wrapper_takes_plain_path_on_cpu():
     q, k, v, mask = _inputs(2, 4, 1, 24, 16, [24, 10], seed=6)
-    flash_attention.launches = 0
+    tracing.reset_counters("flash_attention_fwd")
     args = [torch.from_numpy(a) for a in (q, k, v, mask)]
     out, lse = flash_attention(*args)
     want_out, want_lse = flash_attention_fwd_ref(*args)
-    assert flash_attention.launches == 0
+    assert tracing.counters()["flash_attention_fwd"] == 0
     torch.testing.assert_close(out, want_out, rtol=0, atol=0)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
 

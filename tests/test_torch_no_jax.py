@@ -63,6 +63,7 @@ SLICE_MODULES = [
     "turkish_asr_torch.scripts.synthetic_arpa",
     "turkish_asr_torch.utils.msgpack_read",
     "turkish_asr_torch.utils.runtime",
+    "turkish_asr_torch.utils.tracing",
     "turkish_asr_torch.export_model",
     "turkish_asr_torch.scripts.overfit",
     "turkish_asr_torch.parallel",

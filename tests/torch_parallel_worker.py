@@ -79,8 +79,7 @@ def train(tmp, cfg, init, batches, mesh_spec=None, accum=1, flush=False, grads=F
     Returns the losses, the full state dict after the steps, the kernel
     launches, and with ``grads`` the first batch's loss and full gradients
     before any step."""
-    from turkish_asr_torch.ops.ctc import ctc_loss
-    from turkish_asr_torch.ops.flash_attention import flash_attention
+    from turkish_asr_torch.utils import tracing
     mesh = _mesh(mesh_spec)
     tr = _trainer(tmp, cfg, init, mesh, accum, device=device)
     steps = torch.load(batches, weights_only=False)
@@ -95,9 +94,9 @@ def train(tmp, cfg, init, batches, mesh_spec=None, accum=1, flush=False, grads=F
         out["loss0"] = float(tr._data_sum(loss))
         out["grads0"] = _full_grads(tr, g)
     out["losses"] = [tr.train_step(step[d], seed=seed0 + i) for i, step in enumerate(steps)]
-    out["launches"] = {"flash_attention_fwd": flash_attention.launches,
-                       "flash_attention_bwd": flash_attention.launches_bwd,
-                       "ctc_fwd": ctc_loss.launches_fwd, "ctc_bwd": ctc_loss.launches_bwd}
+    counters = tracing.counters()
+    out["launches"] = {name: counters[name] for name in
+                       ("flash_attention_fwd", "flash_attention_bwd", "ctc_fwd", "ctc_bwd")}
     if flush:
         tr.flush_accumulation()
     tr.sync_global_step()

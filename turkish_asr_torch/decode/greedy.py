@@ -2,10 +2,13 @@
 
 Counterpart of turkish_asr_tpu/decode/greedy.py. The whole batch collapse
 (drop repeats, drop blanks, left-pack) is tensor code on the logits'
-device; the host only detokenizes the packed id rows.
+device; the host only detokenizes the packed id rows. The span
+``d2h_wait`` (``utils/tracing.py``) covers the host's wait for them.
 """
 
 import torch
+
+from turkish_asr_torch.utils import tracing
 
 
 def greedy_collapse_batch(logits, lengths=None, *, blank_id=0):
@@ -51,5 +54,6 @@ class GreedyDecoder:
         if blank is None:
             blank = self.blank_id
         ids, counts = greedy_collapse_batch(logits, lengths, blank_id=int(blank))
-        ids, counts = ids.cpu().tolist(), counts.cpu().tolist()
+        with tracing.span("d2h_wait"):
+            ids, counts = ids.cpu().tolist(), counts.cpu().tolist()
         return [self.tokenizer.decode(row[:n]) for row, n in zip(ids, counts)]

@@ -41,6 +41,7 @@ from turkish_asr_torch.data.tokenizer import load_tokenizer
 from turkish_asr_torch.decode.beam import CTCBeamDecoder
 from turkish_asr_torch.decode.greedy import GreedyDecoder
 from turkish_asr_torch.decode.lm import KenLMModel, NGramLanguageModel
+from turkish_asr_torch.utils import tracing
 from turkish_asr_torch.utils.device import resolve_device
 from turkish_asr_torch.utils.errors import TimestampsUnsupportedError
 from turkish_asr_torch.utils.weights import load_model
@@ -164,18 +165,24 @@ class ASRInference:
         valid output frames (B,)), both on the device. The rows are split
         in order over the replicas (``data_parallel``); each replica's
         launches are queued before any result is read."""
-        outs = []
-        for model, rows in zip(self.replicas, np.array_split(np.arange(len(lengths)),
-                                                             len(self.replicas))):
-            if len(rows) == 0:
-                continue
-            dev = next(model.parameters()).device
-            wav = torch.from_numpy(waveforms[rows]).to(dev)
-            lens = torch.from_numpy(lengths[rows]).to(dev)
-            feats, frame_lengths = log_mel_spectrogram(wav, lens, n_mels=self.cfg.n_mels)
-            outs.append((model(feats, frame_lengths, self.compute_dtype), frame_lengths // 4))
-        return (torch.cat([o[0].to(self.device) for o in outs]),
-                torch.cat([o[1].to(self.device) for o in outs]))
+        B, S = waveforms.shape
+        tracing.count("forward_samples_valid", int(lengths.sum()))
+        tracing.count("forward_samples_padded", B * S)
+        with tracing.span("forward", B=B, S=S):
+            outs = []
+            for model, rows in zip(self.replicas, np.array_split(np.arange(len(lengths)),
+                                                                 len(self.replicas))):
+                if len(rows) == 0:
+                    continue
+                dev = next(model.parameters()).device
+                with tracing.span("h2d"):
+                    wav = torch.from_numpy(waveforms[rows]).to(dev)
+                    lens = torch.from_numpy(lengths[rows]).to(dev)
+                feats, frame_lengths = log_mel_spectrogram(wav, lens, n_mels=self.cfg.n_mels)
+                outs.append((model(feats, frame_lengths, self.compute_dtype),
+                             frame_lengths // 4))
+            return (torch.cat([o[0].to(self.device) for o in outs]),
+                    torch.cat([o[1].to(self.device) for o in outs]))
 
     def _forward_padded(self, waveform):
         n = waveform.shape[0]
@@ -188,7 +195,9 @@ class ASRInference:
     def _logits(self, audio_path, chunk_seconds=28.0, overlap_seconds=2.0):
         """Logits of a file; audio longer than the largest bucket runs in
         overlapping chunks whose trimmed logits are concatenated."""
-        waveform, sr = load_audio(audio_path)
+        with tracing.span("load") as span:
+            waveform, sr = load_audio(audio_path)
+            span.set(samples=waveform.shape[0])
         n = waveform.shape[0]
         if n <= DEFAULT_WAVEFORM_BUCKETS[-1]:
             logits, out_len = self._forward_padded(waveform)
@@ -280,60 +289,65 @@ class ASRInference:
         each (the device collapse, or the configured beam decoder). Files longer than the largest bucket run alone,
         chunked. A file that fails to load or decode gives ""; with
         ``return_errors=True`` returns (texts, error strings or None)."""
-        waveforms = []
-        errors = [None] * len(audio_paths)
-        for i, p in enumerate(audio_paths):
-            try:
-                w, _ = load_audio(p)
-                waveforms.append(None if w.shape[0] > DEFAULT_WAVEFORM_BUCKETS[-1] else w)
-            except Exception as e:  # noqa: BLE001 — per-file error capture
-                print(f"Error processing {p}: {e}")
-                errors[i] = str(e)
-                waveforms.append(False)
-
-        results = {}
-        by_bucket = {}
-        for idx, w in enumerate(waveforms):
-            if w is None or w is False:
-                continue
-            by_bucket.setdefault(bucket_table(w.shape[0], DEFAULT_WAVEFORM_BUCKETS),
-                                 []).append(idx)
-        for S, group_idx in sorted(by_bucket.items()):
-            for i in range(0, len(group_idx), batch_size):
-                group = group_idx[i:i + batch_size]
-                wav = np.zeros((batch_size, S), dtype=np.float32)
-                # Padding rows: one sample, so zero valid output frames.
-                lens = np.full((batch_size,), 1, dtype=np.int32)
-                for j, idx in enumerate(group):
-                    w = waveforms[idx]
-                    wav[j, :w.shape[0]] = w
-                    lens[j] = w.shape[0]
-                logits, out_lens = self._forward_batch(wav, lens)
-                if isinstance(self.decoder, CTCBeamDecoder):  # the host beam reads numpy
-                    texts = self.decoder.decode_batch(logits.cpu().numpy(),
-                                                      out_lens.cpu().numpy())
-                elif self.decoder is not None:
-                    texts = self.decoder.decode_batch(logits, out_lens)
-                else:
-                    texts = self.greedy.decode_batch(logits, out_lens)
-                for j, idx in enumerate(group):
-                    results[idx] = texts[j]
-
-        out = []
-        for idx, p in enumerate(audio_paths):
-            if waveforms[idx] is False:
-                out.append("")
-            elif waveforms[idx] is None:
+        with tracing.span("transcribe_files", files=len(audio_paths), batch_size=batch_size):
+            waveforms = []
+            errors = [None] * len(audio_paths)
+            for i, p in enumerate(audio_paths):
                 try:
-                    out.append(self.transcribe(p))
+                    with tracing.span("load") as span:
+                        w, _ = load_audio(p)
+                        span.set(samples=w.shape[0])
+                    waveforms.append(None if w.shape[0] > DEFAULT_WAVEFORM_BUCKETS[-1] else w)
                 except Exception as e:  # noqa: BLE001 — per-file error capture
-                    errors[idx] = str(e)
+                    print(f"Error processing {p}: {e}")
+                    errors[i] = str(e)
+                    waveforms.append(False)
+
+            results = {}
+            by_bucket = {}
+            for idx, w in enumerate(waveforms):
+                if w is None or w is False:
+                    continue
+                by_bucket.setdefault(bucket_table(w.shape[0], DEFAULT_WAVEFORM_BUCKETS),
+                                     []).append(idx)
+            for S, group_idx in sorted(by_bucket.items()):
+                for i in range(0, len(group_idx), batch_size):
+                    group = group_idx[i:i + batch_size]
+                    with tracing.span("batch", S=S, rows=len(group)):
+                        wav = np.zeros((batch_size, S), dtype=np.float32)
+                        # Padding rows: one sample, so zero valid output frames.
+                        lens = np.full((batch_size,), 1, dtype=np.int32)
+                        for j, idx in enumerate(group):
+                            w = waveforms[idx]
+                            wav[j, :w.shape[0]] = w
+                            lens[j] = w.shape[0]
+                        logits, out_lens = self._forward_batch(wav, lens)
+                        with tracing.span("decode"):
+                            if isinstance(self.decoder, CTCBeamDecoder):  # the host beam: numpy
+                                texts = self.decoder.decode_batch(logits.cpu().numpy(),
+                                                                  out_lens.cpu().numpy())
+                            elif self.decoder is not None:
+                                texts = self.decoder.decode_batch(logits, out_lens)
+                            else:
+                                texts = self.greedy.decode_batch(logits, out_lens)
+                        for j, idx in enumerate(group):
+                            results[idx] = texts[j]
+
+            out = []
+            for idx, p in enumerate(audio_paths):
+                if waveforms[idx] is False:
                     out.append("")
-            else:
-                out.append(results[idx])
-        if return_errors:
-            return out, errors
-        return out
+                elif waveforms[idx] is None:
+                    try:
+                        out.append(self.transcribe(p))
+                    except Exception as e:  # noqa: BLE001 — per-file error capture
+                        errors[idx] = str(e)
+                        out.append("")
+                else:
+                    out.append(results[idx])
+            if return_errors:
+                return out, errors
+            return out
 
 
 def main(argv=None):

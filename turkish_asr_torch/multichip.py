@@ -88,10 +88,10 @@ def dryrun_multichip(n, device="cuda"):
         KenLMModel, build_hash_fusion_tables, build_trie_fusion_tables)
     from turkish_asr_torch.main import build_kernels_once
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
-    from turkish_asr_torch.ops.flash_attention import flash_attention
     from turkish_asr_torch.parallel.mesh import make_mesh, shard_model
     from turkish_asr_torch.train.optim import make_optimizer
     from turkish_asr_torch.train.trainer import Trainer
+    from turkish_asr_torch.utils import tracing
     from turkish_asr_torch.utils.config import get_config
     from turkish_asr_torch.utils.logger import get_logger
 
@@ -129,13 +129,13 @@ def dryrun_multichip(n, device="cuda"):
         lm = KenLMModel(path)
     trie = build_trie_fusion_tables(lm, tokenizer, cfg.n_classes)
     hashed = build_hash_fusion_tables(lm, tokenizer, cfg.n_classes)
-    launches = flash_attention.launches
+    launches = tracing.counters()["flash_attention_fwd"]
     with torch.no_grad():
         wav = torch.from_numpy(local["waveforms"]).to(device)
         lens = torch.from_numpy(local["wav_lengths"]).to(device)
         feats, frames = log_mel_spectrogram(wav, lens, n_mels=cfg.n_mels)
         logits = trainer.model(feats, frames, torch.bfloat16)
-    launches = flash_attention.launches - launches
+    launches = tracing.counters()["flash_attention_fwd"] - launches
     texts = [DeviceBeamDecoder(tokenizer, beam_width=BEAM_WIDTH, device=device, **{kw: tables})
              .decode_batch(logits, frames // 4) for kw, tables in (("lm_trie", trie),
                                                                    ("lm_hash", hashed))]

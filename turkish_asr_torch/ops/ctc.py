@@ -12,13 +12,12 @@ targets, or raise for what they do not take. Both devices go through
 ``CTCNegLogLikelihood``, differentiable in log_probs.
 
 ``ctc_plan`` is the kernels' launch plan, in Python so that the CPU tests
-hold it. ``ctc_loss.launches_fwd`` and ``ctc_loss.launches_bwd`` count the
-kernel launches. ``ctc_loss_numpy_oracle`` is a copy of the JAX module's
+hold it. The counters ``ctc_fwd`` and ``ctc_bwd`` of ``utils/tracing.py``
+count the kernel launches. ``ctc_loss_numpy_oracle`` is a copy of the JAX module's
 numpy dynamic program (:187-224), for tests.
 """
 
 import ctypes
-import threading
 from collections import namedtuple
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 
 from turkish_asr_torch.ops._build import load_library
 from turkish_asr_torch.ops._ctc import NEG_INF, ctc_bwd_ref, ctc_fwd_ref, ctc_topology
+from turkish_asr_torch.utils import tracing
 
 FWD_SOURCES = ("ctc_fwd.cu",)
 BWD_SOURCES = ("ctc_bwd.cu",)
@@ -36,7 +36,8 @@ WIDE_WARPS, WIDE_LANES = 16, 17  # the wide path: up to 16 recursion warps of 17
 PRODUCER_WARPS = {"fwd": 4, "bwd": 8}
 MAX_CHUNK = 32  # frames staged a chunk
 MAX_SMEM = 232448  # the H100's dynamic shared memory a block
-_count_lock = threading.Lock()
+tracing.count("ctc_fwd", 0)
+tracing.count("ctc_bwd", 0)
 
 Plan = namedtuple("Plan", "warps lanes chunk smem threads")
 
@@ -103,11 +104,6 @@ def load_bwd_kernel():
     return fn
 
 
-def _count(attr):
-    with _count_lock:
-        setattr(ctc_loss, attr, getattr(ctc_loss, attr) + 1)
-
-
 def _check(log_probs, targets, input_lengths, target_lengths):
     if log_probs.dim() != 3 or targets.dim() != 2:
         raise ValueError("log_probs must be (B, T, V) and targets (B, L)")
@@ -159,7 +155,7 @@ def _forward(log_probs, targets, input_lengths, target_lengths, blank_id):
                 plan.chunk, plan.smem, torch.cuda.current_stream(lp.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ctc_fwd launch failed with CUDA error {rc}")
-    _count("launches_fwd")
+    tracing.count("ctc_fwd")
     return nll, alpha
 
 
@@ -186,7 +182,7 @@ def _backward(log_probs, targets, input_lengths, target_lengths, alpha, nll, cot
                 plan.chunk, plan.smem, torch.cuda.current_stream(lp.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ctc_bwd launch failed with CUDA error {rc}")
-    _count("launches_bwd")
+    tracing.count("ctc_bwd")
     return grad
 
 
@@ -242,10 +238,6 @@ def ctc_loss(log_probs, targets, input_lengths, target_lengths, blank_id=0, redu
     nll = CTCNegLogLikelihood.apply(log_probs, targets, input_lengths, target_lengths,
                                     int(blank_id))
     return _reduce(nll, target_lengths.to(log_probs.device), reduction, zero_infinity)
-
-
-ctc_loss.launches_fwd = 0
-ctc_loss.launches_bwd = 0
 
 
 def ctc_loss_numpy_oracle(log_probs, targets, input_lengths, target_lengths,

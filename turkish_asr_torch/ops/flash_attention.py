@@ -29,14 +29,13 @@ position hash (``_dropout.py``, ``csrc/dropout_hash.cuh``) keyed by
 ``seed``, so the backward, and the dump kernel behind ``dump_keep_mask``,
 regenerate the same mask.
 
-``flash_attention.launches`` and ``flash_attention.launches_bwd`` count
-the forward and backward kernel launches; ``dump_keep_mask.launches`` the
-dump kernel's.
+The counters ``flash_attention_fwd`` and ``flash_attention_bwd`` of
+``utils/tracing.py`` count the forward and backward kernel launches,
+``dropout_mask`` the dump kernel's; ``_fwd`` is the span ``attn_fwd``.
 """
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -46,18 +45,16 @@ from turkish_asr_torch.ops._dropout import keep_mask_ref, keep_threshold
 from turkish_asr_torch.ops._flash_attention import (
     flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
 from turkish_asr_torch.parallel.mesh import shard_seed
+from turkish_asr_torch.utils import tracing
 
 KERNEL_SOURCES = ("flash_attention_fwd.cu",)
 BWD_SOURCES = ("flash_attention_bwd.cu",)
 DUMP_SOURCES = ("dropout_mask.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_count_lock = threading.Lock()
 _entry_points = {}
-
-
-def _count(fn, attr="launches"):
-    with _count_lock:
-        setattr(fn, attr, getattr(fn, attr) + 1)
+tracing.count("flash_attention_fwd", 0)
+tracing.count("flash_attention_bwd", 0)
+tracing.count("dropout_mask", 0)
 
 
 def _entry_point(library, sources, symbol, argtypes):
@@ -257,7 +254,7 @@ def _fwd_cuda(q, k, v, mask, rate, seed):
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {rc}")
-    _count(flash_attention)
+    tracing.count("flash_attention_fwd")
     return out, lse, row_max, row_sum
 
 
@@ -272,7 +269,10 @@ def _fwd(q, k, v, mask, rate, seed):
     """(out, lse, row_max, row_sum) from the op: the kernel (CUDA) or its
     plain version (CPU)."""
     _device_of(q)
-    return flash_attention_fwd(q, k, v, mask, rate, seed)
+    B, H, T, D = q.shape
+    with tracing.span("attn_fwd", B=B, H=H, Kh=k.shape[1], T=T, D=D,
+                      dtype="bf16" if q.dtype == torch.bfloat16 else "fp32"):
+        return flash_attention_fwd(q, k, v, mask, rate, seed)
 
 
 def _bwd(q, k, v, mask, row_max, row_sum, delta, g, rate, seed):
@@ -304,7 +304,7 @@ def _bwd(q, k, v, mask, row_max, row_sum, delta, g, rate, seed):
                 seed, threshold, inv_keep, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed with CUDA error {rc}")
-    _count(flash_attention, "launches_bwd")
+    tracing.count("flash_attention_bwd")
     return dq, dk, dv
 
 
@@ -350,10 +350,6 @@ def flash_attention(q, k, v, mask=None, dropout_rate=0.0, seed=0, data_rank=0):
     return out, lse
 
 
-flash_attention.launches = 0
-flash_attention.launches_bwd = 0
-
-
 def flash_attention_plain(q, k, v, mask=None, dropout_rate=0.0, seed=0, data_rank=0):
     """``flash_attention``'s function through its plain version
     (``_flash_attention.flash_attention_fwd_stats_ref``) on any device,
@@ -388,8 +384,5 @@ def dump_keep_mask(B, H, T, seed, rate, device):
                 torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dump_keep_mask launch failed with CUDA error {rc}")
-    _count(dump_keep_mask)
+    tracing.count("dropout_mask")
     return keep
-
-
-dump_keep_mask.launches = 0

@@ -4,7 +4,8 @@ Counterpart of scripts/ab_swiglu.py ``swiglu_pallas`` (:67-85). Tensors on
 the CPU go to the plain version (``_swiglu.py::swiglu_fused_ref``); CUDA
 tensors launch the hand-written Hopper kernel (``csrc/swiglu_fwd.cu``) or
 raise. Forward only, as the TPU kernel: an input that requires grad is
-refused. ``swiglu.launches`` counts the kernel launches.
+refused. The counter ``swiglu_fwd`` of ``utils/tracing.py`` counts the
+kernel launches.
 
 ``swiglu_plan`` is the kernel's launch arithmetic, in Python so that the
 CPU tests hold it: the grid, the thread-block cluster (blocks splitting
@@ -13,7 +14,6 @@ copy path, which the kernel takes from it and checks.
 """
 
 import ctypes
-import threading
 from collections import namedtuple
 
 import numpy as np
@@ -21,6 +21,7 @@ import torch
 
 from turkish_asr_torch.ops._build import load_library
 from turkish_asr_torch.ops._swiglu import swiglu_fused_ref
+from turkish_asr_torch.utils import tracing
 
 SOURCES = ("swiglu_fwd.cu",)
 ROW_TILES = (64, 128)  # rows a block owns; one kernel instance each
@@ -41,7 +42,7 @@ X_TILE = 65536  # bytes of the x tile: 128 x 256 or 64 x 512 bf16
 G_TILES = 32768  # the g tiles: two buffers of 64 x 128 bf16
 WARPGROUPS = 3  # two consumer warpgroups and a producer warpgroup a block
 FSPLITS = (1, 2, 4, 8)  # blocks of a cluster that split F; 8 is the portable most
-_count_lock = threading.Lock()
+tracing.count("swiglu_fwd", 0)
 
 Plan = namedtuple("Plan", "grid cluster smem aligned stages chunk groups")
 
@@ -170,12 +171,8 @@ def swiglu(x, w1, b1, w2, b2, tm=None):
                 plan.smem, int(plan.aligned), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"swiglu_fwd launch failed with CUDA error {rc}")
-    with _count_lock:
-        swiglu.launches += 1
+    tracing.count("swiglu_fwd")
     return y
-
-
-swiglu.launches = 0
 
 
 def args_from_numpy(x, w1, b1, w2, b2, device):
