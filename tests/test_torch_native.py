@@ -4,24 +4,28 @@ nothing of the JAX package, build the library under
 build/turkish_asr_torch/, and give what the numpy and Python decoders give;
 the resampler and the edit distance give the JAX package's results bit for
 bit, through the native routines and through their numpy and Python
-fallbacks (``TASR_NATIVE=0``)."""
+fallbacks (``TASR_NATIVE=0``); the WAV decoder, the port's own, gives the
+bits of the numpy decoder and of the JAX package's in every sample format."""
 
 import json
+import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
+from turkish_asr_tpu.audio.wavio import read_wav as jax_read_wav
 from turkish_asr_tpu.audio.wavio import resample as jax_resample
 from turkish_asr_tpu.data.tokenizer import CharTokenizer as JaxCharTokenizer
 from turkish_asr_tpu.utils import metrics as jax_metrics
 from turkish_asr_torch.audio import wavio
 from turkish_asr_torch.data.tokenizer import CharTokenizer
 from turkish_asr_torch.native import loader
-from turkish_asr_torch.utils import metrics
+from turkish_asr_torch.utils import metrics, tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(ROOT, "tests")
@@ -81,9 +85,19 @@ def test_decoders_use_the_ports_own_native_library(tmp_path):
         assert out["lib"] is None and out["natively"] == [False, False]
 
 
+def _without_wav_section(source):
+    """The C++ source from its first line after the port's header, with
+    the WAV section (its banner down to the resampler's) cut out."""
+    source = source[source.index("// Native host-side hot ops"):]
+    start = source.index("// WAV decode\n")
+    return source[:start] + source[source.index("// Windowed-sinc", start):]
+
+
 def test_native_source_is_the_ports_own_copy():
     """The port compiles its own copy of the host C++ decoders, which
-    holds the JAX package's source unchanged below its header, and no
+    holds the JAX package's source unchanged below its header but for the
+    WAV section (``wav_decode``, the port's own: the parametrised test
+    below holds it to the numpy decoder and the JAX package's), and no
     file of the port or chip_smoke.py names a path in the JAX package's
     native tree."""
     port = os.path.join(ROOT, "turkish_asr_torch")
@@ -93,13 +107,123 @@ def test_native_source_is_the_ports_own_copy():
     with open(os.path.join(ROOT, "turkish_asr_tpu", "native", "src", "asr_native.cpp"),
               encoding="utf-8") as f:
         original = f.read()
-    assert copy.endswith(original) and copy.startswith("// Copied into turkish_asr_torch")
+    assert copy.startswith("// Copied into turkish_asr_torch")
+    assert original.startswith("// Native host-side hot ops")
+    assert _without_wav_section(copy) == _without_wav_section(original)
+    assert "int wav_decode(" in copy and "int wav_decode(" in original
+    for name in ("int64_t resample_f32(", "int flac_decode(", "int64_t levenshtein_i32("):
+        assert name in _without_wav_section(copy), name
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(port):
         files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
     for path in files:
         with open(path, encoding="utf-8") as f:
             assert '"turkish_asr_tpu" /' not in f.read(), path
+
+
+def _chunk(name, body):
+    return name + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+
+def _wav_bytes(code, bits, channels, frames, seed, extensible=False, truncate=0,
+               data_first=False):
+    """A WAV file of seeded samples: PCM (code 1) of random bytes over the
+    full range, or IEEE float (code 3) of values from 1e-45 to 1e3, and a
+    ``LIST`` chunk last; ``extensible`` writes the format as
+    WAVE_FORMAT_EXTENSIBLE, ``data_first`` puts ``data`` before ``fmt ``,
+    and ``truncate`` leaves out the ``LIST`` chunk and cuts that many bytes
+    off the data (the sizes in the headers stay)."""
+    rng = np.random.default_rng(seed)
+    n = frames * channels
+    if code == 1:
+        raw = rng.integers(0, 256, n * bits // 8, dtype=np.uint8).tobytes()
+    else:
+        x = rng.standard_normal(n) * np.exp(rng.uniform(-103.0, 7.0, n))
+        raw = x.astype("<f4" if bits == 32 else "<f8").tobytes()
+    align = channels * bits // 8
+    fmt = struct.pack("<HHIIHH", 0xFFFE if extensible else code, channels, 22050,
+                      22050 * align, align, bits)
+    if extensible:
+        guid_tail = b"\x00\x00\x00\x00\x10\x00\x80\x00\x00\xaa\x00\x38\x9b\x71"
+        fmt += struct.pack("<HHIH", 22, bits, (1 << channels) - 1, code) + guid_tail
+    chunks = [_chunk(b"fmt ", fmt), _chunk(b"data", raw)]
+    if data_first:
+        chunks.reverse()
+    if not truncate:
+        chunks.append(_chunk(b"LIST", b"INFOISFT\x05\x00\x00\x00test\x00"))
+    body = b"WAVE" + b"".join(chunks)
+    data = b"RIFF" + struct.pack("<I", len(body)) + body
+    return data[:len(data) - truncate]
+
+
+_FORMATS = [(1, 8), (1, 16), (1, 24), (1, 32), (3, 32), (3, 64)]
+_WAV_CASES = [pytest.param(dict(code=c, bits=b, channels=ch, frames=1024),
+                           id=f"{'pcm' if c == 1 else 'float'}{b}-{ch}ch")
+              for c, b in _FORMATS for ch in (1, 2, 3)] + [
+    pytest.param(dict(code=1, bits=8, channels=1, frames=2049), id="pcm8-odd-frames"),
+    pytest.param(dict(code=1, bits=16, channels=3, frames=777), id="pcm16-3ch-odd-frames"),
+    pytest.param(dict(code=1, bits=16, channels=1, frames=1), id="pcm16-one-frame"),
+    pytest.param(dict(code=3, bits=64, channels=2, frames=1), id="float64-2ch-one-frame"),
+    pytest.param(dict(code=1, bits=24, channels=2, frames=1000, extensible=True),
+                 id="pcm24-2ch-extensible"),
+    pytest.param(dict(code=3, bits=32, channels=1, frames=1000, extensible=True),
+                 id="float32-extensible"),
+    pytest.param(dict(code=1, bits=16, channels=2, frames=1000, truncate=2),
+                 id="pcm16-2ch-truncated-mid-frame"),
+    pytest.param(dict(code=1, bits=24, channels=1, frames=1000, truncate=301),
+                 id="pcm24-truncated"),
+    pytest.param(dict(code=3, bits=32, channels=2, frames=1000, data_first=True),
+                 id="float32-2ch-data-before-fmt"),
+]
+
+
+def _bits(x):
+    return np.ascontiguousarray(x).view(np.uint32)
+
+
+@pytest.mark.parametrize("case", _WAV_CASES)
+def test_wav_decoder_gives_the_numpy_and_jax_bits(tmp_path, monkeypatch, case):
+    """The port's native ``wav_decode`` gives, bit for bit and at the same
+    rate, what the numpy branch of ``read_wav`` (``TASR_NATIVE=0``) and the
+    JAX package's ``read_wav`` give (through its own native library, built
+    from the original decoder, and through its numpy branch)."""
+    data = _wav_bytes(seed=0, **case)
+    path = tmp_path / "a.wav"
+    path.write_bytes(data)
+    native = loader.wav_decode_native(data)
+    if shutil.which("g++"):
+        assert native is not None
+    jax_native = jax_read_wav(str(path))
+    monkeypatch.setenv("TASR_NATIVE", "0")
+    assert loader.wav_decode_native(data) is None
+    want, want_rate = wavio.read_wav(str(path))
+    jax_numpy = jax_read_wav(str(path))
+    frame_bytes = case["channels"] * case["bits"] // 8
+    frames = case["frames"] - math.ceil(case.get("truncate", 0) / frame_bytes)
+    assert want.dtype == np.float32 and want.shape == (case["channels"], frames)
+    for got, rate in [r for r in (native, jax_native, jax_numpy) if r is not None]:
+        assert rate == want_rate == 22050
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_read_wav_counts_the_route_it_took(tmp_path, monkeypatch, route):
+    """Each WAV decoded adds 1 to ``wav_decode_native`` when the library
+    decoded it and to ``wav_decode_numpy`` when the numpy branch did."""
+    if route == "native" and not shutil.which("g++"):
+        pytest.skip("no g++: the native library cannot be built")
+    if route == "numpy":
+        monkeypatch.setenv("TASR_NATIVE", "0")
+    path = str(tmp_path / "a.wav")
+    wavio.write_wav(path, np.zeros((1, 160), np.float32), 16000)
+    other = {"native": "numpy", "numpy": "native"}[route]
+    before = tracing.counters()
+    wavio.read_wav(path)
+    after = tracing.counters()
+    delta = {k: after.get(f"wav_decode_{k}", 0) - before.get(f"wav_decode_{k}", 0)
+             for k in (route, other)}
+    assert delta == {route: 1, other: 0}
 
 
 @pytest.mark.parametrize("orig,new,route", [(44100, 16000, "native"), (8000, 16000, "native"),

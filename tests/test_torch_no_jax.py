@@ -54,6 +54,7 @@ SLICE_MODULES = [
     "turkish_asr_torch.scripts.ab_swiglu",
     "turkish_asr_torch.scripts.ab_attention",
     "turkish_asr_torch.scripts.ab_ctc",
+    "turkish_asr_torch.scripts.ab_wav",
     "turkish_asr_torch.scripts.dump_floor",
     "turkish_asr_torch.decode",
     "turkish_asr_torch.decode.lm",

@@ -1,6 +1,7 @@
 # Copied from turkish_asr_tpu/audio/wavio.py; only the imports, the form of the
-# reference-file citations and ``resample`` differ. The JAX package's own __init__
-# files import JAX, so this jax-free host module cannot be imported from there.
+# reference-file citations, ``read_wav``'s counters and ``resample`` differ. The JAX
+# package's own __init__ files import JAX, so this jax-free host module cannot be
+# imported from there.
 """Host-side audio I/O: RIFF/WAVE decode and windowed-sinc resampling.
 
 The reference delegates these to torchaudio's C++ ops
@@ -26,6 +27,8 @@ import struct
 from functools import lru_cache
 
 import numpy as np
+
+from turkish_asr_torch.utils import tracing
 
 TARGET_SAMPLE_RATE = 16000
 
@@ -112,6 +115,9 @@ def read_wav(path):
 
     Uses the native C++ decoder (turkish_asr_torch.native) when available,
     with this numpy implementation as the always-available fallback/oracle.
+    Each file decoded adds 1 to the counter ``wav_decode_native`` or
+    ``wav_decode_numpy`` (``turkish_asr_torch.utils.tracing``) by the route
+    it took.
 
     Returns:
         (waveform, sample_rate): float32 array of shape (channels, samples)
@@ -127,6 +133,7 @@ def read_wav(path):
         from turkish_asr_torch.native.loader import wav_decode_native
         native = wav_decode_native(data)
         if native is not None:
+            tracing.count("wav_decode_native")
             return native
     except ValueError:
         pass  # unsupported-by-native format: fall through to numpy
@@ -187,6 +194,7 @@ def read_wav(path):
         x = x[: (len(x) // n_channels) * n_channels].reshape(-1, n_channels).T
     else:
         x = x.reshape(1, -1)
+    tracing.count("wav_decode_numpy")
     return np.ascontiguousarray(x), sample_rate
 
 

@@ -1,6 +1,9 @@
 // Copied into turkish_asr_torch from turkish_asr_tpu/native/src/asr_native.cpp
-// (the JAX package's host decoders), unchanged below this header, so that
-// the port builds its native library (native/loader.py) from its own tree.
+// (the JAX package's host decoders), so that the port builds its native
+// library (native/loader.py) from its own tree. Unchanged below this header
+// but for the WAV section, which is the port's own: wav_decode converts
+// samples in one branch-free loop per sample format, chosen once a file
+// (namespace wav), and gives the original's bits.
 //
 // Native host-side hot ops for turkish_asr_tpu.
 //
@@ -26,6 +29,78 @@ extern "C" {
 // ---------------------------------------------------------------------------
 // WAV decode
 // ---------------------------------------------------------------------------
+
+}  // extern "C"
+
+namespace wav {
+
+template <typename T>
+static inline T load(const uint8_t* p) {
+  T v;
+  memcpy(&v, p, sizeof v);
+  return v;
+}
+
+// One sample format each: its width in bytes and its value scaled to
+// [-1, 1]. The PCM scales are powers of two, so the products equal the
+// quotients (float)s / 2^(bits - 1) bit for bit.
+struct Pcm8 {
+  static constexpr int kBytes = 1;
+  static float get(const uint8_t* p) {
+    return ((float)p[0] - 128.0f) * (1.0f / 128.0f);
+  }
+};
+struct Pcm16 {
+  static constexpr int kBytes = 2;
+  static float get(const uint8_t* p) {
+    return (float)load<int16_t>(p) * (1.0f / 32768.0f);
+  }
+};
+struct Pcm24 {
+  static constexpr int kBytes = 3;
+  static float get(const uint8_t* p) {
+    // The three bytes in the top of a word, shifted down with their sign.
+    int32_t s = (int32_t)((uint32_t)p[0] << 8 | (uint32_t)p[1] << 16 |
+                          (uint32_t)p[2] << 24) >> 8;
+    return (float)s * (1.0f / 8388608.0f);
+  }
+};
+struct Pcm32 {
+  static constexpr int kBytes = 4;
+  static float get(const uint8_t* p) {
+    return (float)load<int32_t>(p) * (1.0f / 2147483648.0f);
+  }
+};
+struct Float32 {
+  static constexpr int kBytes = 4;
+  static float get(const uint8_t* p) { return load<float>(p); }
+};
+struct Float64 {
+  static constexpr int kBytes = 8;
+  static float get(const uint8_t* p) { return (float)load<double>(p); }
+};
+
+// Interleaved frames -> (channels, frames). Mono reads and writes in order,
+// which -O3 vectorizes; more channels take one strided pass a channel.
+template <class Format>
+static void convert(const uint8_t* __restrict pcm, int64_t frames,
+                    int channels, float* __restrict out) {
+  constexpr int64_t B = Format::kBytes;
+  if (channels == 1) {
+    for (int64_t f = 0; f < frames; ++f) out[f] = Format::get(pcm + B * f);
+    return;
+  }
+  const int64_t stride = B * channels;
+  for (int c = 0; c < channels; ++c) {
+    const uint8_t* __restrict src = pcm + B * c;
+    float* __restrict dst = out + (int64_t)c * frames;
+    for (int64_t f = 0; f < frames; ++f) dst[f] = Format::get(src + stride * f);
+  }
+}
+
+}  // namespace wav
+
+extern "C" {
 
 // Parses the RIFF container. Returns 0 on success.
 // Pass out=nullptr to query sizes (n_samples per channel, channels, rate).
@@ -89,41 +164,18 @@ int wav_decode(const uint8_t* data, int64_t n_bytes,
   *sample_rate = rate;
   if (out == nullptr) return 0;  // size query
 
-  // Deinterleave to (channels, frames), scaled to [-1, 1].
-  for (int64_t f = 0; f < frames; ++f) {
-    for (int c = 0; c < channels; ++c) {
-      int64_t i = f * channels + c;
-      float v = 0.f;
-      if (fmt_code == 1) {
-        if (bits == 8) {
-          v = ((float)pcm[i] - 128.0f) / 128.0f;
-        } else if (bits == 16) {
-          int16_t s;
-          memcpy(&s, pcm + 2 * i, 2);
-          v = (float)s / 32768.0f;
-        } else if (bits == 24) {
-          int32_t s = pcm[3 * i] | (pcm[3 * i + 1] << 8) |
-                      (pcm[3 * i + 2] << 16);
-          if (s >= (1 << 23)) s -= (1 << 24);
-          v = (float)s / 8388608.0f;
-        } else {
-          int32_t s;
-          memcpy(&s, pcm + 4 * i, 4);
-          v = (float)s / 2147483648.0f;
-        }
-      } else {
-        if (bits == 32) {
-          float s;
-          memcpy(&s, pcm + 4 * i, 4);
-          v = s;
-        } else {
-          double s;
-          memcpy(&s, pcm + 8 * i, 8);
-          v = (float)s;
-        }
-      }
-      out[(int64_t)c * frames + f] = v;
-    }
+  if (fmt_code == 1 && bits == 8) {
+    wav::convert<wav::Pcm8>(pcm, frames, channels, out);
+  } else if (fmt_code == 1 && bits == 16) {
+    wav::convert<wav::Pcm16>(pcm, frames, channels, out);
+  } else if (fmt_code == 1 && bits == 24) {
+    wav::convert<wav::Pcm24>(pcm, frames, channels, out);
+  } else if (fmt_code == 1) {
+    wav::convert<wav::Pcm32>(pcm, frames, channels, out);
+  } else if (bits == 32) {
+    wav::convert<wav::Float32>(pcm, frames, channels, out);
+  } else {
+    wav::convert<wav::Float64>(pcm, frames, channels, out);
   }
   return 0;
 }

@@ -3,9 +3,10 @@
 Counters (``count``, ``counters``) are always on: named integers under one
 lock. The kernel wrappers count their launches here (``flash_attention_fwd``,
 ``flash_attention_bwd``, ``dropout_mask``, ``ctc_fwd``, ``ctc_bwd``,
-``swiglu_fwd``), and ``ASRInference._forward_batch`` the samples it is
+``swiglu_fwd``), ``ASRInference._forward_batch`` the samples it is
 given (``forward_samples_valid``) and the padded array's
-(``forward_samples_padded``).
+(``forward_samples_padded``), and ``audio/wavio.py::read_wav`` the files
+it decoded by route (``wav_decode_native``, ``wav_decode_numpy``).
 
 Spans (``span``) exist to be laid against a device trace, so they record
 only while a ``torch.profiler`` session is open on the calling thread
@@ -34,8 +35,6 @@ import itertools
 import threading
 import time
 from typing import NamedTuple, Optional
-
-import torch
 
 # About 2,000 transcription calls of 64 files (some 130 spans each).
 MAX_SPANS = 1 << 18
@@ -140,6 +139,8 @@ class Recorder:
     def span(self, name, **attrs):
         """A context manager: the span ``name``, recorded as the module's
         docstring says, or the shared context that does nothing."""
+        import torch  # here, so that the counters alone need no torch
+
         if not (self._forced or torch.autograd._profiler_enabled()):
             return _OFF
         return _Open(self, name, attrs)
