@@ -78,6 +78,22 @@ Phases; any failure raises and the script exits non-zero.
    width's first shape two calls must be bit-identical and a call must
    launch one device kernel, the SwiGLU kernel. Median CUDA-event times
    of the kernel, the fused plain version and the chain at each shape.
+4b. Relative-position attention (csrc/flash_attention_relpos_fwd.cu, the
+   Conformer (L) block's; it replaces no TPU kernel): the kernel against
+   its plain version at the transcription cell's shape (B=32, H=8, T'=801,
+   D=64, bf16, key lengths in [601, 801]), within 2e-2 (tests/
+   test_torch_cuda.py says why); its device ms (20 calls queued behind a
+   spin kernel), the plain version's and the library composition's (SDPA
+   with the rel-shifted position term as a float mask,
+   turkish_asr_torch/scripts/ab_relpos.py) beside its bound. Then the
+   serving path: a seeded Conformer (L) .pt (the port's init_model; 17
+   blocks, d 512, 8 heads, kernel 32, 1000 classes) loaded by
+   ASRInference(pt, n_heads=8), which reads the block, heads and kernel
+   from the checkpoint, and served by transcribe_files on four 25-32 s
+   WAVs at batch 2: the counter ``flash_attention_relpos_fwd`` must read
+   17 launches for each of the call's two forwards, and the served logits
+   of a batch must lie within bf16's own error of the same batch through
+   the plain core, their frames' argmaxes agreeing at 0.99.
 5. Training: a synthetic corpus (tones with character transcripts, 1-8 s)
    trained through turkish_asr_torch.main at flagship width (80 mels,
    d_model 256, 4 heads MQA, 8 blocks, char tokenizer, dropout 0.1,
@@ -261,6 +277,8 @@ import numpy as np
 import torch
 
 SR = 16000
+# the benchmark's 1000-symbol BPE, the tokenizer of the Conformer (L) checkpoint
+CONFORMER_L_VOCAB = str(Path(__file__).resolve().parent / "asr_bench" / "vocab" / "flagship.json")
 # (M, C, F): the flagship FFN (d_model 256, d_ff 1024) at the A/B's M,
 # and Conformer-L's (bench config 5: d_model 512, d_ff 2048) at its
 # training step's and its forward's rows (B=4 and B=16 x T'=1601).
@@ -400,7 +418,7 @@ def kernel_bounds(name, **shape):
 
 
 LAUNCH_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd", "dropout_mask", "ctc_fwd",
-                   "ctc_bwd", "swiglu_fwd")
+                   "ctc_bwd", "swiglu_fwd", "flash_attention_relpos_fwd")
 
 
 def _counts():
@@ -411,20 +429,22 @@ def _counts():
 
 
 def _reset_counts(*names):
-    """Set the launch counters ``names`` (all six, with none given) to 0."""
+    """Set the launch counters ``names`` (all of them, with none given) to 0."""
     from turkish_asr_torch.utils import tracing
     tracing.reset_counters(*(names or LAUNCH_COUNTERS))
 
 
 def build_phase():
-    from turkish_asr_torch.ops import _build, ctc, flash_attention as fa, swiglu
+    from turkish_asr_torch.ops import _build, ctc, flash_attention as fa, relpos_attention, swiglu
     libraries = {"flash_attention_fwd": fa.KERNEL_SOURCES, "flash_attention_bwd": fa.BWD_SOURCES,
                  "dropout_mask": fa.DUMP_SOURCES, "ctc_fwd": ctc.FWD_SOURCES,
-                 "ctc_bwd": ctc.BWD_SOURCES, "swiglu_fwd": swiglu.SOURCES}
+                 "ctc_bwd": ctc.BWD_SOURCES, "swiglu_fwd": swiglu.SOURCES,
+                 "flash_attention_relpos_fwd": relpos_attention.KERNEL_SOURCES}
     start = time.perf_counter()
     _build.build_all(libraries)
     fa.load_kernel(), fa.load_bwd_kernel(), fa.load_dump_kernel()
     ctc.load_fwd_kernel(), ctc.load_bwd_kernel(), swiglu.load_kernel()
+    relpos_attention.load_kernel()
     print(f"kernel build + load ({len(libraries)} libraries in parallel): "
           f"{time.perf_counter() - start:.3f} s", flush=True)
     for name, sources in libraries.items():
@@ -849,6 +869,137 @@ def _one_kernel(fn, name):
     if any(name not in key for key in kernels) or round(launches) != 1:
         raise AssertionError(f"one call launched {kernels}; expected {name} alone, once")
     return launches
+
+
+def relpos_phase():
+    """Phase 4b: the relative-position attention kernel (see the module
+    docstring). Returns (launches a Conformer (L) forward, max |kernel -
+    plain|, times)."""
+    from turkish_asr_torch.ops._relpos_attention import relpos_attention_ref
+    from turkish_asr_torch.ops.relpos_attention import relpos_attention
+    from turkish_asr_torch.scripts import ab_relpos
+    from turkish_asr_torch.scripts.ab_attention import device_ms
+
+    dev = torch.device("cuda")
+    B, H, T, D = 32, 8, 801, 64
+    g = torch.Generator().manual_seed(19)
+    q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    p = torch.randn(2 * T - 1, H, D, generator=g).to(dev, torch.bfloat16)
+    u, w = ((0.125 * torch.randn(H, D, generator=g)).to(dev) for _ in range(2))
+    lengths = torch.from_numpy(np.random.default_rng(19).integers(601, T + 1, B)
+                               .astype(np.int32)).to(dev)
+    args = (q, k, v, p, u, w, lengths)
+    with torch.no_grad():
+        out = relpos_attention(*args)
+        want = torch.cat([relpos_attention_ref(*(t[i:i + 8] for t in (q, k, v)), p, u, w,
+                                               lengths[i:i + 8]) for i in range(0, B, 8)])
+        err = (out.float() - want.float()).abs().max().item()
+        if not err <= 2e-2:
+            raise AssertionError(f"relative-position attention kernel off its plain version "
+                                 f"by {err}")
+        times = {"ms": device_ms(lambda: relpos_attention(*args)),
+                 "plain_ms": device_ms(lambda: relpos_attention_ref(*args), calls=3),
+                 "library_ms": device_ms(lambda: ab_relpos.library(*args)),
+                 "bound_ms": ab_relpos.bound_ms(B, T), "bound_by": "operations"}
+        del q, k, v, p, want, out
+    launches, served = _conformer_l_served()
+    print(f"relpos: max |kernel - plain| {err:.3g}; {json.dumps(times)}; "
+          f"{launches} launches a forward on the served path; {json.dumps(served)}", flush=True)
+    return launches, err, times
+
+
+def _conformer_l_served():
+    """A seeded Conformer (L) ``.pt`` (the port's ``init_model``, 17 blocks,
+    d 512, 8 heads, kernel 32, 1000 classes) served by
+    ``ASRInference.transcribe_files`` on four 25-32 s WAVs at batch 2 (two
+    forwards at the 32 s bucket): the block, heads and kernel read from the
+    checkpoint alone; one kernel launch a block and forward; the served
+    logits against the same batch through the plain core. Returns
+    (launches a forward, the comparison's numbers)."""
+    from turkish_asr_torch.audio.features import log_mel_spectrogram
+    from turkish_asr_torch.audio.wavio import write_wav
+    from turkish_asr_torch.inference import ASRInference
+    from turkish_asr_torch.models import attention
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+
+    cfg = ModelConfig(n_mels=80, d_model=512, n_heads=8, n_blocks=17, n_classes=1000,
+                      conv_kernel_size=32, block="conformer")
+    model = init_model(cfg, torch.Generator().manual_seed(0))
+    waves = [_tone(seconds, 40 + i) for i, seconds in enumerate((32, 30, 27.5, 25))]
+    with tempfile.TemporaryDirectory() as workdir:
+        pt = os.path.join(workdir, "conformer_l.pt")
+        torch.save({"model_state_dict": model.state_dict(),
+                    "config": {"n_heads": 8, "n_mel_channels": 80}}, pt)
+        paths = []
+        for i, w in enumerate(waves):
+            paths.append(os.path.join(workdir, f"conformer_l_{i}.wav"))
+            write_wav(paths[-1], w, SR)
+        asr = ASRInference(pt, n_heads=8, device="cuda", data_parallel=False,
+                           tokenizer_path=CONFORMER_L_VOCAB)
+        got = asr.cfg
+        if (got.block, got.n_blocks, got.d_model, got.n_heads, got.conv_kernel_size,
+                got.n_classes) != ("conformer", 17, 512, 8, 32, 1000):
+            raise AssertionError(f"the Conformer (L) .pt loaded as {got}")
+        forwards = {}
+        asr._forward_batch = _timed(asr._forward_batch, forwards, "ms")
+        asr.transcribe_files(paths, batch_size=2)  # the bucket's first forwards
+        calls = len(forwards["ms"])
+        _reset_counts("flash_attention_relpos_fwd")
+        texts = asr.transcribe_files(paths, batch_size=2)
+        launches = _counts()["flash_attention_relpos_fwd"]
+        calls = len(forwards["ms"]) - calls
+        if calls != 2 or launches != cfg.n_blocks * calls:
+            raise AssertionError(f"transcribe_files made {calls} forwards (want 2) and "
+                                 f"launched the kernel {launches} times (want {cfg.n_blocks} "
+                                 f"a forward)")
+
+        # The served batch's logits against the plain core's (bf16, and fp32
+        # for the size of bf16's own error), on the two longest files.
+        S = 32 * SR
+        wav = np.zeros((2, S), np.float32)
+        for r, w in enumerate(waves[:2]):
+            wav[r, :len(w)] = w
+        lens = np.asarray([len(w) for w in waves[:2]], np.int32)
+        kernel, frames = asr._forward_batch(wav, lens)
+        with mock.patch.object(attention, "relpos_attention", attention.relpos_attention_plain):
+            plain, _ = asr._forward_batch(wav, lens)
+            with torch.inference_mode():
+                feats, fl = log_mel_spectrogram(torch.from_numpy(wav).cuda(),
+                                                torch.from_numpy(lens).cuda(), n_mels=80)
+                plain_fp32 = asr.model(feats, fl, torch.float32)
+            plain_texts = asr.transcribe_files(paths, batch_size=2)
+        valid = [slice(0, int(n)) for n in frames]
+        kernel, plain, plain_fp32 = (np.concatenate([x[r][valid[r]].float().cpu().numpy()
+                                                     for r in range(2)])
+                                     for x in (kernel, plain, plain_fp32))
+
+        def rms(a, b):
+            return float(np.sqrt(np.mean((a - b) ** 2)))
+
+        def agree(a, b):
+            return float(np.mean(a.argmax(-1) == b.argmax(-1)))
+
+        served = {"forwards": calls, "forward_ms": forwards["ms"][-calls:],
+                  "max_kernel_plain": float(np.abs(kernel - plain).max()),
+                  "max_plain_bf16_fp32": float(np.abs(plain - plain_fp32).max()),
+                  "rms_kernel_fp32": rms(kernel, plain_fp32),
+                  "rms_plain_bf16_fp32": rms(plain, plain_fp32),
+                  "argmax_kernel_fp32": agree(kernel, plain_fp32),
+                  "argmax_plain_bf16_fp32": agree(plain, plain_fp32),
+                  "texts_equal": sum(a == b for a, b in zip(texts, plain_texts))}
+        # Kernel and plain core differ in summation order only: the served
+        # logits lie within bf16's own error of the plain core's, and are as
+        # close to the fp32 path as the plain core's bf16 logits are (a
+        # quarter more error, a hundredth fewer frames' argmaxes kept, at
+        # most). A seeded model's labels nearly tie on many frames, so the
+        # two bf16 paths' argmaxes need not agree at the flagship's 0.99.
+        if not (served["max_kernel_plain"] <= served["max_plain_bf16_fp32"]
+                and served["rms_kernel_fp32"] <= 1.25 * served["rms_plain_bf16_fp32"]
+                and served["argmax_kernel_fp32"]
+                >= served["argmax_plain_bf16_fp32"] - 0.01):
+            raise AssertionError(f"served Conformer (L) logits disagree with the plain core: "
+                                 f"{served}")
+    return launches // calls, served
 
 
 def swiglu_phase():
@@ -2772,6 +2923,7 @@ def main():
     err.update(ctc_err)
     times.update(ctc_times)
     swiglu_launches, err["swiglu_fwd"], times["swiglu_fwd"] = _phase("swiglu", swiglu_phase)
+    relpos = _phase("relpos", relpos_phase)
     with tempfile.TemporaryDirectory() as workdir:
         counts, pt, trained = _phase("training", train_phase, workdir)
         _phase("gradient check", gradient_check)
@@ -2857,6 +3009,11 @@ def main():
                                       ("M", "C", "F", "tm", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "chain_ms", "cublas_products_ms")})
         kernels.append(entry)
+    launches, relpos_err, relpos_times = relpos
+    kernels.append({"name": "flash_attention_relpos_fwd", "route": "cuda",
+                    "source": "turkish_asr_torch/csrc/flash_attention_relpos_fwd.cu",
+                    "replaces": None, "launches": launches, "max_abs_err": relpos_err,
+                    **relpos_times, "path": "python -m turkish_asr_torch.scripts.ab_relpos"})
     print(json.dumps({"beam": beam}))
     print(json.dumps(numbers))
     print(json.dumps({"parallel": parallel}))

@@ -29,6 +29,7 @@ import contextlib
 import io
 import json
 import re
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -726,3 +727,107 @@ def test_attention_kernel_is_the_default_and_kernel_off_launches_none(cuda):
         else:
             assert (fwd, bwd) == (0, 0)
     assert (logits[True] - logits[False]).abs().max().item() < 1e-3
+
+
+# The relative-position attention kernel (csrc/flash_attention_relpos_fwd.cu):
+# bf16 q, k, v, p with the cell's 8 heads of 64, against its plain version in
+# fp32 on the same bf16 inputs. 2e-2 on the bf16 context, as the flash
+# forward's: the kernel rounds q + u, q + v and the unnormalized p to bf16
+# and its output to bf16; the plain version rounds only its output.
+RELPOS_T = [1, 63, 64, 65, 601, 801, 1601]
+
+
+def _relpos_inputs(B, T, device, H=8, D=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, T, H, D, generator=g).to(device, torch.bfloat16) for _ in range(3))
+    p = torch.randn(2 * T - 1, H, D, generator=g).to(device, torch.bfloat16)
+    u, w = (0.125 * torch.randn(H, D, generator=g)).to(device), (
+        0.125 * torch.randn(H, D, generator=g)).to(device)
+    lengths = torch.tensor(_lengths(B, T) if B > 1 else [T], dtype=torch.int32, device=device)
+    return q, k, v, p, u, w, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("T", RELPOS_T)
+def test_relpos_kernel_matches_plain_version(cuda, B, T):
+    from turkish_asr_torch.ops._relpos_attention import relpos_attention_ref
+    from turkish_asr_torch.ops.relpos_attention import relpos_attention
+
+    q, k, v, p, u, w, lengths = _relpos_inputs(B, T, cuda)
+    before = _launches("flash_attention_relpos_fwd")
+    with torch.no_grad():
+        out = relpos_attention(q, k, v, p, u, w, lengths)
+        rows = 4 if T > 800 else B  # the plain version's (B, H, T, 2T-1) scores, in parts
+        want = torch.cat([relpos_attention_ref(q[i:i + rows], k[i:i + rows], v[i:i + rows], p,
+                                               u, w, lengths[i:i + rows])
+                          for i in range(0, B, rows)])
+    torch.cuda.synchronize()
+    assert _launches("flash_attention_relpos_fwd") == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+
+
+def _conformer_l(device, n_blocks=17):
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    cfg = ModelConfig(n_mels=80, d_model=512, n_heads=8, n_blocks=n_blocks, n_classes=1000,
+                      conv_kernel_size=32, block="conformer")
+    return init_model(cfg, torch.Generator().manual_seed(0)).to(device).eval()
+
+
+@pytest.mark.cuda
+def test_relpos_kernel_launches_once_a_layer_and_no_flash_forward(cuda):
+    model = _conformer_l(cuda, n_blocks=3)
+    x = torch.randn(2, 801, 80, device=cuda)
+    lens = torch.tensor([801, 500], device=cuda)
+    before = (_launches("flash_attention_relpos_fwd"), _launches("flash_attention_fwd"))
+    with torch.no_grad():
+        logits = model(x, lens, torch.bfloat16)
+        plain = model(x, lens, torch.bfloat16, attn_kernel=False)
+    torch.cuda.synchronize()
+    assert (_launches("flash_attention_relpos_fwd") - before[0],
+            _launches("flash_attention_fwd") - before[1]) == (3, 0)
+    assert torch.isfinite(logits).all()
+    # bf16 through three blocks on both sides; the kernel-off core is the plain version
+    assert (logits - plain).abs().max().item() < 0.25 * plain.abs().max().item()
+    with pytest.raises(NotImplementedError, match="backward kernel"):
+        model(x, lens, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_relpos_attention_layer_memory_stays_under_the_scores(cuda):
+    """At the cell's B=32 and T'=801 one layer's attention allocates far
+    less than the 1.31 GB that its fp32 (B, H, T', 2T'-1) scores would
+    take: no score tensor exists."""
+    attn = _conformer_l(cuda, n_blocks=1).blocks[0].attn
+    x = torch.randn(32, 801, 512, device=cuda, dtype=torch.bfloat16)
+    lengths = torch.full((32,), 801, dtype=torch.int32, device=cuda)
+    scores_bytes = 32 * 8 * 801 * (2 * 801 - 1) * 4
+    with torch.no_grad():
+        attn(x, lengths, torch.bfloat16)  # the kernel built and the position table made
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        attn(x, lengths, torch.bfloat16)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert scores_bytes > 1.3e9 and peak < scores_bytes / 4, peak
+
+
+@pytest.mark.cuda
+def test_asr_inference_refuses_fp32_for_the_conformer_block_on_the_card(cuda, tmp_path):
+    """The relative-position kernel takes bf16: a Conformer (L) checkpoint
+    asked to serve in fp32 on the card is refused when it loads, with the
+    configuration named, not at its first forward."""
+    from turkish_asr_torch.inference import ASRInference
+    path = tmp_path / "conformer_l.pt"
+    torch.save({"model_state_dict": _conformer_l("cpu", n_blocks=1).state_dict(),
+                "config": {"n_heads": 8, "n_mel_channels": 80}}, path)
+    vocab = str(Path(__file__).resolve().parents[1] / "asr_bench" / "vocab" / "flagship.json")
+    with pytest.raises(ValueError, match="Conformer \\(L\\).*bfloat16 only"):
+        ASRInference(str(path), n_heads=8, device="cuda", compute_dtype=torch.float32,
+                     data_parallel=False, tokenizer_path=vocab)
+    asr = ASRInference(str(path), n_heads=8, device="cuda", data_parallel=False,
+                       tokenizer_path=vocab)
+    assert asr.cfg.block == "conformer" and asr.compute_dtype == torch.bfloat16

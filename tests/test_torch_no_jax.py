@@ -26,6 +26,9 @@ SLICE_MODULES = [
     "turkish_asr_torch.ops._build",
     "turkish_asr_torch.ops._flash_attention",
     "turkish_asr_torch.ops.flash_attention",
+    "turkish_asr_torch.ops._relpos_attention",
+    "turkish_asr_torch.ops.relpos_attention",
+    "turkish_asr_torch.scripts.ab_relpos",
     "turkish_asr_torch.decode.greedy",
     "turkish_asr_torch.utils.device",
     "turkish_asr_torch.utils.errors",

@@ -87,6 +87,12 @@ class ASRInference:
         self.cfg, self.model = load_model(model_path, self.device, n_heads=n_heads,
                                           allow_pickle=trust_checkpoint)
         _check_vocab_match(self.cfg.n_classes, self.tokenizer, model_path)
+        if (self.cfg.block == "conformer" and self.device.type == "cuda"
+                and compute_dtype != torch.bfloat16):
+            # the relative-position attention kernel takes bf16 q, k, v and p
+            raise ValueError(
+                f"{model_path} is a Conformer (L) checkpoint (block='conformer'); on CUDA it "
+                f"serves in bfloat16 only, got compute_dtype={compute_dtype}")
         self.replicas = [self.model]
         if data_parallel:
             if devices is None and self.device.type == "cuda":

@@ -1,4 +1,5 @@
-"""RoPE + multi-query attention for the Conformer encoder.
+"""RoPE + multi-query attention for the Conformer encoder, and the
+relative-position multi-head attention of Conformer (L).
 
 Counterpart of turkish_asr_tpu/models/attention.py. Parameter names are the
 reference ``state_dict`` keys (``linear_q``, ``linear_k``, ``linear_v``,
@@ -20,6 +21,14 @@ and "seq" at its entry as JAX's ``shard_map(P("data"))`` gathers them,
 and each rank keeps its heads and frames of the context. Each model rank's
 gradient into k and v covers its heads only, so k and v pass through
 ``copy_to``, whose backward sums them over the model group.
+
+``RelPositionMultiHeadAttention`` is the attention of Gulati et al. 2020
+(Conformer, arXiv:2005.08100) with Transformer-XL's relative positions
+(arXiv:1901.02860, sec. 3.3): full K/V heads, no RoPE, the sinusoid of each
+relative distance projected by ``linear_pos`` (no bias) and the learned
+``pos_bias_u`` and ``pos_bias_v`` of each head; its core is
+``ops.relpos_attention`` (the Hopper kernel on CUDA tensors, the plain
+version on CPU tensors). It runs on one process only.
 """
 
 import threading
@@ -30,6 +39,7 @@ import torch
 from torch import nn
 
 from turkish_asr_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from turkish_asr_torch.ops.relpos_attention import relpos_attention, relpos_attention_plain
 from turkish_asr_torch.parallel.collectives import all_gather, copy_to, reduce_from
 from turkish_asr_torch.parallel.mesh import axis_group, seq_bounds
 
@@ -182,3 +192,54 @@ class MultiQueryAttention(nn.Module):
             h0 = 0 if model is None else model.index * Hl
             context = context[:, t0:t1, h0:h0 + Hl]
         return dense(self.linear_out, context.reshape(B, Tl, Hl * Dh), compute_dtype, model)
+
+
+@lru_cache(maxsize=16)
+def _rel_pos_table_np(seq_len, dim):
+    r = np.arange(seq_len - 1, -seq_len, -1, dtype=np.float64)
+    omega = 10000.0 ** (-np.arange(0, dim, 2, dtype=np.float64) / dim)
+    angle = np.outer(r, omega)
+    return np.concatenate([np.sin(angle), np.cos(angle)], axis=-1).astype(np.float32)
+
+
+@lru_cache(maxsize=32)
+def rel_pos_table(seq_len, dim, dtype, device):
+    """(2 seq_len - 1, dim) sinusoids of the relative distances from
+    seq_len - 1 down to -(seq_len - 1): row m is [sin(r w) | cos(r w)] at
+    r = seq_len - 1 - m, w_i = 10000^(-2i/dim), from fp64 host math, in
+    ``dtype`` (made outside inference mode, as ``rope_cos_sin``)."""
+    table = _rel_pos_table_np(int(seq_len), int(dim))
+    with torch.inference_mode(False):
+        return torch.from_numpy(table).to(device=device, dtype=dtype)
+
+
+class RelPositionMultiHeadAttention(nn.Module):
+    """Multi-head self-attention with relative positions (Conformer (L))."""
+
+    mesh = None
+
+    def __init__(self, d_model, n_heads):
+        super().__init__()
+        self.n_heads = n_heads
+        self.d_head = d_model // n_heads
+        self.linear_q = nn.Linear(d_model, d_model)
+        self.linear_k = nn.Linear(d_model, d_model)
+        self.linear_v = nn.Linear(d_model, d_model)
+        self.linear_out = nn.Linear(d_model, d_model)
+        self.linear_pos = nn.Linear(d_model, d_model, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(n_heads, self.d_head))
+        self.pos_bias_v = nn.Parameter(torch.zeros(n_heads, self.d_head))
+
+    def forward(self, x, lengths, compute_dtype=torch.float32, attn_kernel=True):
+        """x (B, T, D) normalized input; lengths (B,) valid frames. ->
+        (B, T, D). ``attn_kernel=False`` runs the core through its plain
+        version."""
+        B, T, D = x.shape
+        H, Dh = self.n_heads, self.d_head
+        q, k, v = (dense(lin, x, compute_dtype).view(B, T, H, Dh)
+                   for lin in (self.linear_q, self.linear_k, self.linear_v))
+        table = rel_pos_table(T, D, compute_dtype, x.device)
+        p = torch.matmul(table, self.linear_pos.weight.to(compute_dtype).t()).view(2 * T - 1, H, Dh)
+        core = relpos_attention if attn_kernel else relpos_attention_plain
+        context = core(q, k, v, p, self.pos_bias_u, self.pos_bias_v, lengths)
+        return dense(self.linear_out, context.reshape(B, T, D), compute_dtype)

@@ -42,6 +42,26 @@ function, with the collectives of ``parallel/collectives.py``:
   depthwise convolution takes a halo of (k-1)/2 frames on each side.
 - dropout draws each mask at the one-process shape and takes this rank's
   slice, so replicated activations get the same mask on every rank.
+
+``ModelConfig.block`` picks the block. ``"flagship"`` (the default) is the
+reference model's above. ``"conformer"`` is Conformer (L)'s (Gulati et al.
+2020, arXiv:2005.08100), every module pre-norm:
+
+- ``x1 = x + FFN(x) / 2``, FFN = LayerNorm -> Linear(d, 4d) -> Swish ->
+  Linear(4d, d) (``ff1``, ``norm_ff1``; ``ff2``, ``norm_ff2`` after the conv)
+- ``x2 = x1 + MHSA_rel(LayerNorm(x1))`` (``norm_attn``, ``attn``:
+  ``models/attention.RelPositionMultiHeadAttention``)
+- ``x3 = x2 + Conv(x2)``, Conv = LayerNorm -> pointwise(2d) -> GLU ->
+  padded frames zeroed -> depthwise(k) -> BatchNorm -> Swish -> pointwise
+- ``y = LayerNorm(x3 + FFN(x3) / 2)`` (``final_norm``)
+
+LayerNorm takes fp32 statistics and returns the input's dtype, as
+``group_norm``. The depthwise convolution pads as TensorFlow's ``SAME``
+(the paper's Lingvo): (k-1)//2 frames before and k//2 after, 15 and 16 for
+k = 32. With padded frames zeroed before it, LayerNorm per frame, BatchNorm
+on running statistics and positions that depend only on i - j, a file's
+logits do not depend on its bucket or its batch. The subsample takes ReLU.
+The block serves only: it refuses a mesh and training.
 """
 
 import math
@@ -53,7 +73,8 @@ import torch.utils.checkpoint
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
-from turkish_asr_torch.models.attention import MultiQueryAttention, dense, in_dense_product
+from turkish_asr_torch.models.attention import (
+    MultiQueryAttention, RelPositionMultiHeadAttention, dense, in_dense_product)
 from turkish_asr_torch.parallel.collectives import all_gather, all_reduce, copy_to, halo
 from turkish_asr_torch.parallel.mesh import axis_group, seq_bounds, shard_seed
 
@@ -72,6 +93,16 @@ class ModelConfig:
     # Exclude padded frames from GroupNorm/BatchNorm statistics (opt-in;
     # the reference lets padding leak into them).
     masked_norm: bool = False
+    # "flagship" (the reference model's block) or "conformer" (Conformer
+    # (L)'s: LayerNorm, Swish, relative-position attention; serving only).
+    block: str = "flagship"
+
+    def __post_init__(self):
+        if self.block not in BLOCKS:
+            raise ValueError(f"block must be one of {BLOCKS}, got {self.block!r}")
+
+
+BLOCKS = ("flagship", "conformer")
 
 
 def groupnorm_groups(num_channels, preferred=32):
@@ -320,6 +351,91 @@ class ConformerBlock(nn.Module):
         return (out, *stats) if train else out
 
 
+def layer_norm(norm, x):
+    """LayerNorm of (B, T, C) over C: fp32 statistics, output in x's dtype."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(x.dtype)
+
+
+class SwishFeedForward(nn.Module):
+    """Linear(d, 4d) -> Swish -> Linear(4d, d)."""
+
+    def __init__(self, d_model, d_ff):
+        super().__init__()
+        self.linear1 = nn.Linear(d_model, d_ff)
+        self.linear2 = nn.Linear(d_ff, d_model)
+
+    def forward(self, x, compute_dtype):
+        return dense(self.linear2, F.silu(dense(self.linear1, x, compute_dtype)), compute_dtype)
+
+
+class LayerNormConvModule(nn.Module):
+    """LayerNorm -> pointwise(2d) -> GLU -> padded frames zeroed ->
+    depthwise(k, TensorFlow's SAME padding) -> BatchNorm -> Swish -> pointwise."""
+
+    def __init__(self, d_model, kernel_size):
+        super().__init__()
+        self.norm = nn.LayerNorm(d_model)
+        self.pointwise_conv1 = nn.Conv1d(d_model, 2 * d_model, 1)
+        # padding k//2 on both sides; an even kernel drops the first output,
+        # leaving (k-1)//2 frames before and k//2 after
+        self.depthwise_conv = nn.Conv1d(d_model, d_model, kernel_size, padding=kernel_size // 2,
+                                        groups=d_model)
+        self.batch_norm = nn.BatchNorm1d(d_model)
+        self.pointwise_conv2 = nn.Conv1d(d_model, d_model, 1)
+
+    def forward(self, x, mask, compute_dtype):
+        d = x.shape[-1]
+        cd = compute_dtype
+        h = layer_norm(self.norm, x)
+        w1 = self.pointwise_conv1.weight[:, :, 0].to(cd)
+        h = _conv_out(torch.matmul(h.to(cd), w1.t()), self.pointwise_conv1.bias, cd)
+        h = h[..., :d] * torch.sigmoid(h[..., d:])
+        if mask is not None:
+            h = torch.where(mask[:, :, None], h, 0)
+        dw = self.depthwise_conv
+        h = F.conv1d(h.transpose(1, 2), dw.weight.to(cd), padding=dw.padding, groups=dw.groups)
+        if dw.kernel_size[0] % 2 == 0:
+            h = h[..., 1:]
+        h = _conv_out(h.transpose(1, 2), dw.bias, cd)
+        bn = self.batch_norm
+        hn = (h.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
+        h = F.silu((hn * bn.weight + bn.bias).to(cd))
+        w2 = self.pointwise_conv2.weight[:, :, 0].to(cd)
+        return _conv_out(torch.matmul(h, w2.t()), self.pointwise_conv2.bias, cd)
+
+
+class RelPosConformerBlock(nn.Module):
+    """Conformer (L)'s block (the module docstring's equations)."""
+
+    mesh = None
+
+    def __init__(self, cfg):
+        super().__init__()
+        d, d_ff = cfg.d_model, cfg.d_model * cfg.ff_mult
+        self.ff1 = SwishFeedForward(d, d_ff)
+        self.norm_ff1 = nn.LayerNorm(d)
+        self.attn = RelPositionMultiHeadAttention(d, cfg.n_heads)
+        self.norm_attn = nn.LayerNorm(d)
+        self.conv = LayerNormConvModule(d, cfg.conv_kernel_size)
+        self.ff2 = SwishFeedForward(d, d_ff)
+        self.norm_ff2 = nn.LayerNorm(d)
+        self.final_norm = nn.LayerNorm(d)
+
+    def forward(self, x, mask, lengths, compute_dtype, attn_kernel=True):
+        """x (B, T, d); mask (B, T) valid frames or None; lengths (B,) their
+        counts. ``attn_kernel=False``: the attention core's plain version."""
+        if self.mesh is not None:
+            raise NotImplementedError("the Conformer (L) block runs on one process; it has "
+                                      "no mesh axes")
+        cd = compute_dtype
+        x = x + 0.5 * self.ff1(layer_norm(self.norm_ff1, x), cd)
+        x = x + self.attn(layer_norm(self.norm_attn, x), lengths, cd, attn_kernel)
+        x = x + self.conv(x, mask, cd)
+        x = x + 0.5 * self.ff2(layer_norm(self.norm_ff2, x), cd)
+        return layer_norm(self.final_norm, x)
+
+
 def dots_saveable(ctx, op, *args, **kwargs):
     """The ``--remat_policy dots`` checkpoint policy, JAX's
     ``dots_with_no_batch_dims_saveable`` (turkish_asr_tpu/train/trainer.py:63-77):
@@ -339,8 +455,9 @@ def dots_context():
 
 
 class ConformerCTC(nn.Module):
-    """Two stride-2 Conv2d + SiLU subsample, input projection, Conformer
-    blocks, linear CTC head. ``forward`` returns fp32 logits."""
+    """Two stride-2 Conv2d + SiLU subsample (ReLU for the ``conformer``
+    block), input projection, Conformer blocks, linear CTC head.
+    ``forward`` returns fp32 logits."""
 
     mesh = None
 
@@ -348,11 +465,14 @@ class ConformerCTC(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
+        relpos = cfg.block == "conformer"
+        act = nn.ReLU if relpos else nn.SiLU
         self.subsample = nn.Sequential(
-            nn.Conv2d(1, d, 3, stride=2, padding=1), nn.SiLU(),
-            nn.Conv2d(d, d, 3, stride=2, padding=1), nn.SiLU())
+            nn.Conv2d(1, d, 3, stride=2, padding=1), act(),
+            nn.Conv2d(d, d, 3, stride=2, padding=1), act())
         self.input_proj = nn.Linear(d * (cfg.n_mels // 4), d)
-        self.blocks = nn.ModuleList(ConformerBlock(cfg) for _ in range(cfg.n_blocks))
+        block = RelPosConformerBlock if relpos else ConformerBlock
+        self.blocks = nn.ModuleList(block(cfg) for _ in range(cfg.n_blocks))
         self.fc = nn.Linear(d, cfg.n_classes)
 
     def forward(self, x, input_lengths=None, compute_dtype=torch.float32, *, train=False,
@@ -374,10 +494,12 @@ class ConformerCTC(nn.Module):
         ``attn_kernel=None``): the bench's kernel-off runs pass it; the
         default is the kernel."""
         cd = compute_dtype
+        relpos = self.cfg.block == "conformer"
+        act = F.relu if relpos else F.silu
         h = x[:, None].to(cd)  # (B, 1, T, F)
         for conv in (self.subsample[0], self.subsample[2]):
             h = F.conv2d(h, conv.weight.to(cd), stride=2, padding=1)
-            h = F.silu((h.float() + conv.bias.float()[:, None, None]).to(cd))
+            h = act((h.float() + conv.bias.float()[:, None, None]).to(cd))
         B, C, Th, Fh = h.shape
         h = h.permute(0, 2, 1, 3).reshape(B, Th, C * Fh)  # channel-major (C, F)
         mask = None
@@ -391,6 +513,9 @@ class ConformerCTC(nn.Module):
             if mask is None:
                 mask = torch.ones((B, Th), dtype=torch.bool, device=h.device)
         h = dense(self.input_proj, h, cd)
+        if relpos:
+            return self._forward_relpos(h, mask, sub if input_lengths is not None else None, cd,
+                                        Th, train, attn_kernel)
         if not train:
             for block in self.blocks:
                 h = block(h, mask, cd, attn_kernel=attn_kernel)
@@ -409,6 +534,21 @@ class ConformerCTC(nn.Module):
                 h, mean, var = block(h, mask, cd, True, block_seed, attn_kernel)
             bn_state.append((mean, var))
         return self._logits(h, cd, Th), bn_state
+
+    def _forward_relpos(self, h, mask, lengths, cd, T, train, attn_kernel):
+        """The ``conformer`` blocks: serving only, on one process."""
+        if self.mesh is not None:
+            raise NotImplementedError("the Conformer (L) block runs on one process; it has "
+                                      "no mesh axes")
+        if train:
+            raise NotImplementedError("training the Conformer (L) block is not implemented: "
+                                      "its attention has no backward kernel")
+        if lengths is None:
+            lengths = torch.full((h.shape[0],), T, dtype=torch.int64, device=h.device)
+        lengths = torch.clamp(lengths, max=T).to(torch.int32)
+        for block in self.blocks:
+            h = block(h, mask, lengths, cd, attn_kernel)
+        return self._logits(h, cd, T)
 
     def _logits(self, h, cd, T):
         """fp32 logits of the blocks' output; over "seq" those of all T
@@ -441,12 +581,19 @@ def init_model(cfg: ModelConfig, generator=None):
     ``_linear_init``, ``_conv1d_init`` and ``_conv2d_init`` draw them, from
     ``generator``. Norms start at weight 1, bias 0; BatchNorm at mean 0,
     variance 1. The arithmetic does not read the module's train/eval flag:
-    training is the ``train`` argument of ``forward``."""
+    training is the ``train`` argument of ``forward``. The ``conformer``
+    block's ``pos_bias_u`` and ``pos_bias_v`` are drawn uniform in
+    +-1/sqrt(head size); its ``linear_pos`` has no bias."""
     model = ConformerCTC(cfg)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 bound = 1.0 / math.sqrt(mod.weight[0].numel())  # 1 / sqrt(fan_in)
                 mod.weight.uniform_(-bound, bound, generator=generator)
-                mod.bias.uniform_(-bound, bound, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(mod, RelPositionMultiHeadAttention):
+                bound = 1.0 / math.sqrt(mod.d_head)
+                mod.pos_bias_u.uniform_(-bound, bound, generator=generator)
+                mod.pos_bias_v.uniform_(-bound, bound, generator=generator)
     return model

@@ -3,8 +3,8 @@
 Counters (``count``, ``counters``) are always on: named integers under one
 lock. The kernel wrappers count their launches here (``flash_attention_fwd``,
 ``flash_attention_bwd``, ``dropout_mask``, ``ctc_fwd``, ``ctc_bwd``,
-``swiglu_fwd``), ``ASRInference._forward_batch`` the samples it is
-given (``forward_samples_valid``) and the padded array's
+``swiglu_fwd``, ``flash_attention_relpos_fwd``), ``ASRInference._forward_batch``
+the samples it is given (``forward_samples_valid``) and the padded array's
 (``forward_samples_padded``), and ``audio/wavio.py::read_wav`` the files
 it decoded by route (``wav_decode_native``, ``wav_decode_numpy``).
 
@@ -26,8 +26,9 @@ batch_size), ``load`` (one file decoded: samples), ``batch`` (one padded
 batch, from its array until its texts are stored: S, rows), ``forward``
 (``_forward_batch``: B, S), ``h2d`` (the copy of waveforms and lengths to
 the card), ``attn_fwd`` (``ops.flash_attention._fwd``: B, H, Kh, T, D,
-dtype), ``decode`` (the decoder's call) and ``d2h_wait`` (the greedy
-decoder's reads of the card).
+dtype), ``attn_relpos_fwd`` (``ops.relpos_attention.relpos_attention``,
+the Conformer (L) block's attention: B, H, T, D, dtype), ``decode`` (the
+decoder's call) and ``d2h_wait`` (the greedy decoder's reads of the card).
 """
 
 import collections

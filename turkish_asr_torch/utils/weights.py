@@ -185,7 +185,14 @@ def _index_tree(tree, i):
 def config_from_state_dict(sd, n_heads=4, n_mels=None, masked_norm=False):
     """ModelConfig from a reference state dict's shapes. n_heads is not
     recoverable from MQA shapes and input_proj pins only n_mels // 4, so
-    both come from the checkpoint's config when it has one."""
+    both come from the checkpoint's config when it has one.
+
+    The keys say the block: ``attn.linear_pos.weight`` is Conformer (L)'s
+    (``block="conformer"``, full K/V heads, n_heads from ``pos_bias_u``'s
+    rows). The depthwise kernel's size comes from
+    ``conv.depthwise_conv.weight`` and the feed-forward's width from
+    ``ff1.linear1.weight`` (twice the hidden units for the flagship's
+    SwiGLU)."""
     d_model = sd["subsample.0.weight"].shape[0]
     flattened = sd["input_proj.weight"].shape[1]
     if flattened % d_model != 0:
@@ -199,11 +206,22 @@ def config_from_state_dict(sd, n_heads=4, n_mels=None, masked_norm=False):
     n_blocks = 0
     while f"blocks.{n_blocks}.ff1.linear1.weight" in sd:
         n_blocks += 1
+    if not n_blocks:
+        return ModelConfig(n_mels=int(n_mels), d_model=d_model, n_heads=n_heads, n_blocks=0,
+                           n_classes=sd["fc.weight"].shape[0], dropout=0.0,
+                           masked_norm=masked_norm)
+    relpos = "blocks.0.attn.linear_pos.weight" in sd
+    if relpos:
+        n_heads = sd["blocks.0.attn.pos_bias_u"].shape[0]
     d_head = d_model // n_heads
-    use_mqa = sd["blocks.0.attn.linear_k.weight"].shape[0] == d_head if n_blocks else True
+    use_mqa = not relpos and sd["blocks.0.attn.linear_k.weight"].shape[0] == d_head
+    hidden = sd["blocks.0.ff1.linear1.weight"].shape[0] // (1 if relpos else 2)
     return ModelConfig(n_mels=int(n_mels), d_model=d_model, n_heads=n_heads,
                        n_blocks=n_blocks, n_classes=sd["fc.weight"].shape[0],
-                       dropout=0.0, use_mqa=use_mqa, masked_norm=masked_norm)
+                       dropout=0.0, use_mqa=use_mqa, masked_norm=masked_norm,
+                       conv_kernel_size=sd["blocks.0.conv.depthwise_conv.weight"].shape[-1],
+                       ff_mult=hidden // d_model,
+                       block="conformer" if relpos else "flagship")
 
 
 def load_pt(path, device, n_heads=4, allow_pickle=False):
