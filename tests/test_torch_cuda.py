@@ -831,3 +831,67 @@ def test_asr_inference_refuses_fp32_for_the_conformer_block_on_the_card(cuda, tm
     asr = ASRInference(str(path), n_heads=8, device="cuda", data_parallel=False,
                        tokenizer_path=vocab)
     assert asr.cfg.block == "conformer" and asr.compute_dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_staging_ring_refills_an_arena_only_after_its_copy(cuda, tmp_path):
+    """Batches of two lengths through a ring of two page-locked arenas, a spin kernel queued
+    before each copy so that the copies lag the host: each batch's logits are bit for bit
+    ``_forward_batch``'s of the same rows as numpy, each batch counts once in
+    ``staged_pinned``, and the ring waits on the event after an arena's copies before it
+    refills the arena. ``transcribe_files`` gives the texts of every file loaded first, then
+    batched by bucket in index order (``parent_rule``)."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from test_torch_inference_staging import parent_rule
+    from turkish_asr_torch.audio.wavio import write_wav
+    from turkish_asr_torch.inference import ASRInference
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    cfg = ModelConfig(n_mels=80, d_model=64, n_heads=2, n_blocks=2, n_classes=1000, dropout=0.0)
+    path = tmp_path / "model.pt"
+    torch.save({"model_state_dict": init_model(cfg, torch.Generator().manual_seed(0)).state_dict(),
+                "config": {"n_heads": 2, "n_mel_channels": 80}}, path)
+    vocab = str(Path(__file__).resolve().parents[1] / "asr_bench" / "vocab" / "flagship.json")
+    asr = ASRInference(str(path), n_heads=2, device="cuda", data_parallel=False,
+                       tokenizer_path=vocab)
+    rng = np.random.default_rng(0)
+    B = 3
+    batches = [(S, [(0.3 * rng.standard_normal(n)).astype(np.float32)
+                    for n in rng.integers(S // 2 + 1, S + 1, size=rows)])
+               for S, rows in ((32000, 3), (64000, 2), (32000, 1), (64000, 3))]
+    before = tracing.counters().get("staged_pinned", 0)
+    got = []
+    with asr._staging_ring() as ring:
+        for S, rows in batches:
+            wav, lens = ring.stage(rows, S, B)
+            assert wav.is_pinned() and lens.is_pinned()
+            torch.cuda._sleep(20_000_000)
+            got.append(asr._forward_batch(wav, lens)[0])
+    assert _launches("staged_pinned") - before == len(batches)
+    for (S, rows), logits in zip(batches, got):
+        wav = np.zeros((B, S), np.float32)
+        lens = np.ones((B,), np.int32)
+        for j, x in enumerate(rows):
+            wav[j, :x.shape[0]] = x
+            lens[j] = x.shape[0]
+        assert torch.equal(logits, asr._forward_batch(wav, lens)[0]), S
+
+    with asr._staging_ring() as ring:
+        S, rows = batches[0]
+        first, _ = ring.stage(rows, S, B)
+        ring.stage(rows, S, B)
+        torch.cuda._sleep(200_000_000)
+        copied = torch.cuda.Event()
+        copied.record()
+        asr._h2d_copies[first.data_ptr()] = [copied]
+        assert ring.stage(rows, S, B)[0].data_ptr() == first.data_ptr()
+        assert copied.query()
+
+    files = []
+    for k, (S, rows) in enumerate(batches):
+        for j, x in enumerate(rows):
+            files.append(str(tmp_path / f"b{k}_{j}.wav"))
+            write_wav(files[-1], x, 16000)
+    before = _launches("staged_pinned")
+    assert asr.transcribe_files(files, batch_size=B) == parent_rule(asr, files, B)[0]
+    assert _launches("staged_pinned") - before == 4  # 32000: 3 rows, 1; 64000: 3, 2

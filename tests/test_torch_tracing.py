@@ -77,16 +77,20 @@ def test_a_traced_call_records_its_tree(asr, files, batch_size, batches, how):
     (root,) = named["transcribe_files"]
     assert root.parent is None and root.attrs == {"files": 3, "batch_size": batch_size}
     assert all(s.root == root.id for s in spans)
-    parent_of = {"load": "transcribe_files", "batch": "transcribe_files", "forward": "batch",
-                 "h2d": "forward", "attn_fwd": "forward", "decode": "batch",
-                 "d2h_wait": "decode"}
-    for name, parent in parent_of.items():
-        assert all(by_id[s.parent].name == parent for s in named[name]), name
+    # a file loads, and the next batch is staged, while the batch before it is on the device
+    parent_of = {"load": ("transcribe_files", "batch"), "stage": ("transcribe_files", "batch"),
+                 "batch": ("transcribe_files",), "forward": ("batch",), "h2d": ("forward",),
+                 "attn_fwd": ("forward",), "decode": ("batch",), "d2h_wait": ("decode",)}
+    for name, parents in parent_of.items():
+        assert all(by_id[s.parent].name in parents for s in named[name]), name
     assert len(named["load"]) == 3
     assert sorted(s.attrs["samples"] for s in named["load"]) == [16000, 16000, 40000]
-    for name in ("batch", "forward", "h2d", "decode", "d2h_wait"):
+    assert sum(by_id[s.parent].name == "batch" for s in named["load"]) == \
+        delta["load_behind_forward"] == (2 if batch_size == 1 else 0)
+    for name in ("stage", "batch", "forward", "h2d", "decode", "d2h_wait"):
         assert len(named[name]) == batches, name
     assert sum(s.attrs["rows"] for s in named["batch"]) == 3
+    assert [s.attrs for s in named["stage"]] == [s.attrs for s in named["batch"]]
     assert len(named["attn_fwd"]) == N_BLOCKS * batches
     assert {s.attrs["dtype"] for s in named["attn_fwd"]} == {"fp32"}
     # the forward spans' shapes are what the counters counted

@@ -27,6 +27,7 @@ data=N ...`` (``turkish_asr_torch/main.py``).
 """
 
 import argparse
+import contextlib
 import copy
 import os
 from pathlib import Path
@@ -113,6 +114,8 @@ class ASRInference:
             print("WARNING: --lm/ASR_LM_PATH is set but beam search is off — the LM is "
                   "IGNORED on the greedy path (pass --beam_search / USE_BEAM_SEARCH=true).")
         self.greedy = GreedyDecoder(self.tokenizer)
+        self._rings = []        # free _StagingRings
+        self._h2d_copies = {}   # arena address -> events after the copies from it
         print(f"ASR ready on {self.device}")
 
     def _beam_decoder(self, beam_width, lm_path, lm_fusion, lm_weight, word_bonus):
@@ -167,28 +170,53 @@ class ASRInference:
 
     @torch.inference_mode()
     def _forward_batch(self, waveforms, lengths):
-        """(B, S) float32 and (B,) int32 numpy -> (logits (B, T', V) fp32,
-        valid output frames (B,)), both on the device. The rows are split
-        in order over the replicas (``data_parallel``); each replica's
-        launches are queued before any result is read."""
+        """(B, S) float32 and (B,) int32, numpy arrays or CPU tensors ->
+        (logits (B, T', V) fp32, valid output frames (B,)), both on the
+        device. The rows are split in order into contiguous slices over the
+        replicas (``data_parallel``); each replica's launches are queued
+        before any result is read. Page-locked waveforms (a ``_StagingRing``
+        arena's) are copied asynchronously, and the events recorded after
+        the copies are left in ``_h2d_copies`` under the arena's address."""
         B, S = waveforms.shape
         tracing.count("forward_samples_valid", int(lengths.sum()))
         tracing.count("forward_samples_padded", B * S)
+        pinned = torch.is_tensor(waveforms) and waveforms.is_pinned()
         with tracing.span("forward", B=B, S=S):
-            outs = []
-            for model, rows in zip(self.replicas, np.array_split(np.arange(len(lengths)),
+            outs, copied = [], []
+            for model, rows in zip(self.replicas, np.array_split(np.arange(B),
                                                                  len(self.replicas))):
                 if len(rows) == 0:
                     continue
                 dev = next(model.parameters()).device
+                part = slice(rows[0], rows[-1] + 1)
                 with tracing.span("h2d"):
-                    wav = torch.from_numpy(waveforms[rows]).to(dev)
-                    lens = torch.from_numpy(lengths[rows]).to(dev)
+                    wav = torch.as_tensor(waveforms[part]).to(dev, non_blocking=pinned)
+                    lens = torch.as_tensor(lengths[part]).to(dev, non_blocking=pinned)
+                    if pinned:
+                        copied.append(torch.cuda.Event())
+                        copied[-1].record(torch.cuda.current_stream(dev))
                 feats, frame_lengths = log_mel_spectrogram(wav, lens, n_mels=self.cfg.n_mels)
                 outs.append((model(feats, frame_lengths, self.compute_dtype),
                              frame_lengths // 4))
+            if pinned:
+                tracing.count("staged_pinned")
+                self._h2d_copies[waveforms.untyped_storage().data_ptr()] = copied
             return (torch.cat([o[0].to(self.device) for o in outs]),
                     torch.cat([o[1].to(self.device) for o in outs]))
+
+    @contextlib.contextmanager
+    def _staging_ring(self):
+        """A ``_StagingRing`` for one ``transcribe_files`` call: a free one,
+        or a new one while every ring is in use, so calls from several
+        threads (the server's) never share an arena."""
+        try:
+            ring = self._rings.pop()  # one atomic pop: no two calls take one ring
+        except IndexError:
+            ring = _StagingRing(self.device.type == "cuda", self._h2d_copies)
+        try:
+            yield ring
+        finally:
+            self._rings.append(ring)
 
     def _forward_padded(self, waveform):
         n = waveform.shape[0]
@@ -292,68 +320,128 @@ class ASRInference:
     def transcribe_files(self, audio_paths, batch_size=16, return_errors=False):
         """Batched transcription: files are grouped by bucket and padded
         batches of ``batch_size`` rows run as one forward and one decode
-        each (the device collapse, or the configured beam decoder). Files longer than the largest bucket run alone,
-        chunked. A file that fails to load or decode gives ""; with
-        ``return_errors=True`` returns (texts, error strings or None)."""
-        with tracing.span("transcribe_files", files=len(audio_paths), batch_size=batch_size):
-            waveforms = []
+        each (the device collapse, or the configured beam decoder). Files
+        load in order; a bucket's batch is dispatched once it holds
+        ``batch_size`` files, the partial ones at the end in ascending
+        length, so each batch holds the files it would if every file were
+        loaded first. While one batch's forward runs on the card the host
+        loads the next batch's files and pads them into the other arena of a
+        ``_StagingRing``, then decodes the batch on the card and dispatches
+        the next. Files longer than the largest bucket run alone, chunked,
+        after the batches. A file that fails to load or decode gives "";
+        with ``return_errors=True`` returns (texts, error strings or None)."""
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be at least 1, got {batch_size}")
+        with tracing.span("transcribe_files", files=len(audio_paths), batch_size=batch_size), \
+                contextlib.ExitStack() as batch_span, self._staging_ring() as ring:
+            out = [""] * len(audio_paths)
             errors = [None] * len(audio_paths)
+            by_bucket, longer = {}, []
+            pending = None  # (file indices, logits, out_lens) of the batch on the card
+
+            def collect():
+                idx, logits, out_lens = pending
+                with tracing.span("decode"):
+                    if isinstance(self.decoder, CTCBeamDecoder):  # the host beam: numpy
+                        texts = self.decoder.decode_batch(logits.cpu().numpy(),
+                                                          out_lens.cpu().numpy())
+                    elif self.decoder is not None:
+                        texts = self.decoder.decode_batch(logits, out_lens)
+                    else:
+                        texts = self.greedy.decode_batch(logits, out_lens)
+                for j, i in enumerate(idx):
+                    out[i] = texts[j]
+                batch_span.close()
+
+            def dispatch(S, group):
+                nonlocal pending
+                with tracing.span("stage", S=S, rows=len(group)):
+                    wav, lens = ring.stage([w for _, w in group], S, batch_size)
+                if pending is not None:
+                    collect()
+                batch_span.enter_context(tracing.span("batch", S=S, rows=len(group)))
+                pending = ([i for i, _ in group], *self._forward_batch(wav, lens))
+
             for i, p in enumerate(audio_paths):
                 try:
                     with tracing.span("load") as span:
                         w, _ = load_audio(p)
                         span.set(samples=w.shape[0])
-                    waveforms.append(None if w.shape[0] > DEFAULT_WAVEFORM_BUCKETS[-1] else w)
                 except Exception as e:  # noqa: BLE001 — per-file error capture
                     print(f"Error processing {p}: {e}")
                     errors[i] = str(e)
-                    waveforms.append(False)
-
-            results = {}
-            by_bucket = {}
-            for idx, w in enumerate(waveforms):
-                if w is None or w is False:
                     continue
-                by_bucket.setdefault(bucket_table(w.shape[0], DEFAULT_WAVEFORM_BUCKETS),
-                                     []).append(idx)
-            for S, group_idx in sorted(by_bucket.items()):
-                for i in range(0, len(group_idx), batch_size):
-                    group = group_idx[i:i + batch_size]
-                    with tracing.span("batch", S=S, rows=len(group)):
-                        wav = np.zeros((batch_size, S), dtype=np.float32)
-                        # Padding rows: one sample, so zero valid output frames.
-                        lens = np.full((batch_size,), 1, dtype=np.int32)
-                        for j, idx in enumerate(group):
-                            w = waveforms[idx]
-                            wav[j, :w.shape[0]] = w
-                            lens[j] = w.shape[0]
-                        logits, out_lens = self._forward_batch(wav, lens)
-                        with tracing.span("decode"):
-                            if isinstance(self.decoder, CTCBeamDecoder):  # the host beam: numpy
-                                texts = self.decoder.decode_batch(logits.cpu().numpy(),
-                                                                  out_lens.cpu().numpy())
-                            elif self.decoder is not None:
-                                texts = self.decoder.decode_batch(logits, out_lens)
-                            else:
-                                texts = self.greedy.decode_batch(logits, out_lens)
-                        for j, idx in enumerate(group):
-                            results[idx] = texts[j]
+                if pending is not None:
+                    tracing.count("load_behind_forward")
+                if w.shape[0] > DEFAULT_WAVEFORM_BUCKETS[-1]:
+                    longer.append(i)
+                    continue
+                S = bucket_table(w.shape[0], DEFAULT_WAVEFORM_BUCKETS)
+                group = by_bucket.setdefault(S, [])
+                group.append((i, w))
+                if len(group) == batch_size:
+                    dispatch(S, by_bucket.pop(S))
+            for S, group in sorted(by_bucket.items()):
+                dispatch(S, group)
+            if pending is not None:
+                collect()
 
-            out = []
-            for idx, p in enumerate(audio_paths):
-                if waveforms[idx] is False:
-                    out.append("")
-                elif waveforms[idx] is None:
-                    try:
-                        out.append(self.transcribe(p))
-                    except Exception as e:  # noqa: BLE001 — per-file error capture
-                        errors[idx] = str(e)
-                        out.append("")
-                else:
-                    out.append(results[idx])
+            for i in longer:
+                try:
+                    out[i] = self.transcribe(audio_paths[i])
+                except Exception as e:  # noqa: BLE001 — per-file error capture
+                    errors[i] = str(e)
             if return_errors:
                 return out, errors
             return out
+
+
+class _StagingRing:
+    """Two host arenas that ``transcribe_files`` pads its batches into in
+    turn, so one is filled while the card copies from the other. On CUDA
+    they are page-locked and ``_forward_batch`` copies from them
+    asynchronously; an arena is refilled only once the events recorded
+    after its copies (``copies``: arena address -> events) have fired.
+    Both are sized for the largest batch seen and grow together."""
+
+    def __init__(self, pinned, copies):
+        self.pinned = pinned
+        self.copies = copies
+        self.arenas = []  # [(waveforms, lengths)], flat
+        self.turn = 0
+
+    def stage(self, rows, S, batch_size):
+        """``rows`` (at most ``batch_size`` 1-D float32 arrays of at most
+        ``S`` samples) -> ((batch_size, S) waveforms, (batch_size,) int32
+        lengths), views of the next arena holding what a batch made by
+        ``np.zeros`` would: each row zero-padded, padding rows all zero with
+        length 1 (so zero valid output frames)."""
+        if not self.arenas or batch_size * S > self.arenas[0][0].numel() \
+                or batch_size > self.arenas[0][1].numel():
+            for wav_arena, _ in self.arenas:
+                self._wait(wav_arena)
+            n, b = batch_size * S, batch_size
+            if self.arenas:
+                n, b = max(n, self.arenas[0][0].numel()), max(b, self.arenas[0][1].numel())
+            self.arenas = [(torch.empty(n, dtype=torch.float32, pin_memory=self.pinned),
+                            torch.empty(b, dtype=torch.int32, pin_memory=self.pinned))
+                           for _ in range(2)]
+        wav_arena, len_arena = self.arenas[self.turn]
+        self.turn ^= 1
+        self._wait(wav_arena)
+        wav, lens = wav_arena[:batch_size * S].view(batch_size, S), len_arena[:batch_size]
+        w, n = wav.numpy(), lens.numpy()
+        for j, x in enumerate(rows):
+            w[j, :x.shape[0]] = x
+            w[j, x.shape[0]:] = 0
+            n[j] = x.shape[0]
+        w[len(rows):] = 0
+        n[len(rows):] = 1
+        return wav, lens
+
+    def _wait(self, wav_arena):
+        for event in self.copies.pop(wav_arena.data_ptr(), ()):
+            event.synchronize()
 
 
 def main(argv=None):

@@ -4,9 +4,12 @@ Counters (``count``, ``counters``) are always on: named integers under one
 lock. The kernel wrappers count their launches here (``flash_attention_fwd``,
 ``flash_attention_bwd``, ``dropout_mask``, ``ctc_fwd``, ``ctc_bwd``,
 ``swiglu_fwd``, ``flash_attention_relpos_fwd``), ``ASRInference._forward_batch``
-the samples it is given (``forward_samples_valid``) and the padded array's
-(``forward_samples_padded``), and ``audio/wavio.py::read_wav`` the files
-it decoded by route (``wav_decode_native``, ``wav_decode_numpy``).
+the samples it is given (``forward_samples_valid``), the padded array's
+(``forward_samples_padded``) and the batches it copied from a page-locked
+arena (``staged_pinned``), ``ASRInference.transcribe_files`` the files it
+decoded while a forward of the same call was on the device and not yet
+decoded (``load_behind_forward``), and ``audio/wavio.py::read_wav`` the
+files it decoded by route (``wav_decode_native``, ``wav_decode_numpy``).
 
 Spans (``span``) exist to be laid against a device trace, so they record
 only while a ``torch.profiler`` session is open on the calling thread
@@ -22,8 +25,10 @@ handle, the id CUPTI gives a launch) and its attributes. The newest
 ``MAX_SPANS`` are kept.
 
 Spans of the transcription path: ``transcribe_files`` (the root: files,
-batch_size), ``load`` (one file decoded: samples), ``batch`` (one padded
-batch, from its array until its texts are stored: S, rows), ``forward``
+batch_size), ``load`` (one file decoded: samples), ``stage`` (one batch
+padded into a staging arena: S, rows), ``batch`` (one batch, from its
+forward's dispatch until its texts are stored: S, rows; the next batch's
+``load`` and ``stage`` spans fall inside it), ``forward``
 (``_forward_batch``: B, S), ``h2d`` (the copy of waveforms and lengths to
 the card), ``attn_fwd`` (``ops.flash_attention._fwd``: B, H, Kh, T, D,
 dtype), ``attn_relpos_fwd`` (``ops.relpos_attention.relpos_attention``,
