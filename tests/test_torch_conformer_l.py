@@ -124,6 +124,16 @@ def test_gradients_reach_the_weights_on_the_cpu_and_training_is_refused():
         model(x, lens, train=True)
 
 
+def test_the_block_refuses_only_another_dtype_than_bf16_on_the_card():
+    """What ``ASRInference`` asks before it serves: the relative-position
+    kernel takes bf16, so fp32 is refused on CUDA alone, with the block named."""
+    refusal = ConformerCTC(ModelConfig(**SMALL)).block_type.serving_refusal
+    assert refusal(torch.float32, torch.device("cpu")) is None
+    assert refusal(torch.bfloat16, torch.device("cuda")) is None
+    assert "Conformer (L)" in refusal(torch.float32, torch.device("cuda"))
+    assert "bfloat16 only" in refusal(torch.float32, torch.device("cuda"))
+
+
 def test_counts_the_published_size():
     cfg = ModelConfig(n_mels=80, d_model=512, n_heads=8, n_blocks=17, n_classes=1000,
                       conv_kernel_size=32, block="conformer")

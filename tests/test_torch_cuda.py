@@ -838,9 +838,9 @@ def test_staging_ring_refills_an_arena_only_after_its_copy(cuda, tmp_path):
     """Batches of two lengths through a ring of two page-locked arenas, a spin kernel queued
     before each copy so that the copies lag the host: each batch's logits are bit for bit
     ``_forward_batch``'s of the same rows as numpy, each batch counts once in
-    ``staged_pinned``, and the ring waits on the event after an arena's copies before it
-    refills the arena. ``transcribe_files`` gives the texts of every file loaded first, then
-    batched by bucket in index order (``parent_rule``)."""
+    ``staged_pinned``, and the ring waits on the event its ``sent`` recorded after an arena's
+    batch before it refills the arena. ``transcribe_files`` gives the texts of every file loaded
+    first, then batched by bucket in index order (``parent_rule``)."""
     import sys
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from test_torch_inference_staging import parent_rule
@@ -867,6 +867,7 @@ def test_staging_ring_refills_an_arena_only_after_its_copy(cuda, tmp_path):
             assert wav.is_pinned() and lens.is_pinned()
             torch.cuda._sleep(20_000_000)
             got.append(asr._forward_batch(wav, lens)[0])
+            ring.sent()
     assert _launches("staged_pinned") - before == len(batches)
     for (S, rows), logits in zip(batches, got):
         wav = np.zeros((B, S), np.float32)
@@ -879,11 +880,10 @@ def test_staging_ring_refills_an_arena_only_after_its_copy(cuda, tmp_path):
     with asr._staging_ring() as ring:
         S, rows = batches[0]
         first, _ = ring.stage(rows, S, B)
-        ring.stage(rows, S, B)
         torch.cuda._sleep(200_000_000)
-        copied = torch.cuda.Event()
-        copied.record()
-        asr._h2d_copies[first.data_ptr()] = [copied]
+        ring.sent()
+        copied = ring.events[ring.turn ^ 1]
+        ring.stage(rows, S, B)
         assert ring.stage(rows, S, B)[0].data_ptr() == first.data_ptr()
         assert copied.query()
 

@@ -22,7 +22,10 @@ from turkish_asr_tpu.models.conformer import ModelConfig as JaxConfig
 from turkish_asr_tpu.models.conformer import apply_model, count_params as jax_count_params
 from turkish_asr_tpu.models.conformer import init_model as jax_init
 from turkish_asr_tpu.utils.torch_export import export_torch_state_dict
-from turkish_asr_torch.models.conformer import ConformerCTC, ModelConfig, count_params, init_model
+from turkish_asr_torch.models import conformer
+from turkish_asr_torch.models.attention import dense
+from turkish_asr_torch.models.conformer import (
+    Block, ConformerCTC, ModelConfig, count_params, init_model)
 from turkish_asr_torch.utils.weights import config_from_state_dict, load_pt, state_dict_from_jax
 
 CFG = dict(n_mels=80, d_model=64, n_heads=4, n_blocks=2, n_classes=56, dropout=0.0)
@@ -173,3 +176,56 @@ def test_a_served_forward_then_training_in_one_process():
     logits, _ = model(feats, lengths, torch.float32, train=True, seed=1)
     logits.square().mean().backward()
     assert all(p.grad is not None for p in model.parameters() if p.requires_grad)
+
+
+class _ToyBlock(Block):
+    """One residual linear layer, padded frames zeroed, that keeps the
+    ``Frames`` it was given and refuses training."""
+
+    subsample_act = torch.nn.Tanh
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.linear = torch.nn.Linear(cfg.d_model, cfg.d_model)
+        self.seen = []
+
+    def forward(self, x, frames, compute_dtype, train=False, seed=None, attn_kernel=True):
+        if train:
+            raise NotImplementedError("the toy block does not train")
+        self.seen.append((frames.mask, frames.lengths))
+        h = dense(self.linear, x, compute_dtype)
+        if frames.mask is not None:
+            h = torch.where(frames.mask[:, :, None], h, 0)
+        return x + h
+
+
+@pytest.mark.parametrize("with_lengths", [False, True])
+def test_a_block_registered_alone_runs_through_the_model(monkeypatch, batch, with_lengths):
+    """A block added to ``BLOCKS`` and nowhere else: the model builds its
+    subsample activation and its blocks, hands every block one ``Frames``
+    (the mask and the valid counts clamped to T', or T' for every row), and
+    its training refusal reaches the caller."""
+    monkeypatch.setitem(conformer.BLOCKS, "toy", _ToyBlock)
+    model = init_model(ModelConfig(**CFG, block="toy"), torch.Generator().manual_seed(6))
+    assert isinstance(model.subsample[1], torch.nn.Tanh)
+    assert [type(b) for b in model.blocks] == [_ToyBlock] * CFG["n_blocks"]
+    assert model.block_type.serving_refusal(torch.float32, torch.device("cuda")) is None
+    x, lens = (torch.from_numpy(a) for a in batch)
+    lens = lens if with_lengths else None
+    with torch.inference_mode():
+        logits = model(x, lens, torch.float32)
+    T = 26  # 101 frames after two stride-2 convolutions
+    assert logits.shape == (3, T, CFG["n_classes"]) and torch.isfinite(logits).all()
+    want = torch.tensor([101 // 4, 64 // 4, 9 // 4] if with_lengths else [T] * 3,
+                        dtype=torch.int32)
+    seen = [f for b in model.blocks for f in b.seen]
+    assert len(seen) == CFG["n_blocks"]
+    for mask, lengths in seen:
+        assert mask is seen[0][0] and lengths is seen[0][1]
+        assert lengths.dtype == torch.int32 and torch.equal(lengths, want)
+        if with_lengths:
+            assert torch.equal(mask, torch.arange(T)[None, :] < want[:, None].long())
+        else:
+            assert mask is None
+    with pytest.raises(NotImplementedError, match="toy block does not train"):
+        model(x, lens, torch.float32, train=True)

@@ -88,12 +88,9 @@ class ASRInference:
         self.cfg, self.model = load_model(model_path, self.device, n_heads=n_heads,
                                           allow_pickle=trust_checkpoint)
         _check_vocab_match(self.cfg.n_classes, self.tokenizer, model_path)
-        if (self.cfg.block == "conformer" and self.device.type == "cuda"
-                and compute_dtype != torch.bfloat16):
-            # the relative-position attention kernel takes bf16 q, k, v and p
-            raise ValueError(
-                f"{model_path} is a Conformer (L) checkpoint (block='conformer'); on CUDA it "
-                f"serves in bfloat16 only, got compute_dtype={compute_dtype}")
+        refusal = self.model.block_type.serving_refusal(compute_dtype, self.device)
+        if refusal:
+            raise ValueError(f"{model_path} is {refusal}, got compute_dtype={compute_dtype}")
         self.replicas = [self.model]
         if data_parallel:
             if devices is None and self.device.type == "cuda":
@@ -114,8 +111,7 @@ class ASRInference:
             print("WARNING: --lm/ASR_LM_PATH is set but beam search is off — the LM is "
                   "IGNORED on the greedy path (pass --beam_search / USE_BEAM_SEARCH=true).")
         self.greedy = GreedyDecoder(self.tokenizer)
-        self._rings = []        # free _StagingRings
-        self._h2d_copies = {}   # arena address -> events after the copies from it
+        self._rings = []  # free _StagingRings
         print(f"ASR ready on {self.device}")
 
     def _beam_decoder(self, beam_width, lm_path, lm_fusion, lm_weight, word_bonus):
@@ -175,14 +171,13 @@ class ASRInference:
         device. The rows are split in order into contiguous slices over the
         replicas (``data_parallel``); each replica's launches are queued
         before any result is read. Page-locked waveforms (a ``_StagingRing``
-        arena's) are copied asynchronously, and the events recorded after
-        the copies are left in ``_h2d_copies`` under the arena's address."""
+        arena's) are copied asynchronously."""
         B, S = waveforms.shape
         tracing.count("forward_samples_valid", int(lengths.sum()))
         tracing.count("forward_samples_padded", B * S)
         pinned = torch.is_tensor(waveforms) and waveforms.is_pinned()
         with tracing.span("forward", B=B, S=S):
-            outs, copied = [], []
+            outs = []
             for model, rows in zip(self.replicas, np.array_split(np.arange(B),
                                                                  len(self.replicas))):
                 if len(rows) == 0:
@@ -192,15 +187,11 @@ class ASRInference:
                 with tracing.span("h2d"):
                     wav = torch.as_tensor(waveforms[part]).to(dev, non_blocking=pinned)
                     lens = torch.as_tensor(lengths[part]).to(dev, non_blocking=pinned)
-                    if pinned:
-                        copied.append(torch.cuda.Event())
-                        copied[-1].record(torch.cuda.current_stream(dev))
                 feats, frame_lengths = log_mel_spectrogram(wav, lens, n_mels=self.cfg.n_mels)
                 outs.append((model(feats, frame_lengths, self.compute_dtype),
                              frame_lengths // 4))
             if pinned:
                 tracing.count("staged_pinned")
-                self._h2d_copies[waveforms.untyped_storage().data_ptr()] = copied
             return (torch.cat([o[0].to(self.device) for o in outs]),
                     torch.cat([o[1].to(self.device) for o in outs]))
 
@@ -212,7 +203,7 @@ class ASRInference:
         try:
             ring = self._rings.pop()  # one atomic pop: no two calls take one ring
         except IndexError:
-            ring = _StagingRing(self.device.type == "cuda", self._h2d_copies)
+            ring = _StagingRing(self.device)
         try:
             yield ring
         finally:
@@ -361,6 +352,7 @@ class ASRInference:
                     collect()
                 batch_span.enter_context(tracing.span("batch", S=S, rows=len(group)))
                 pending = ([i for i, _ in group], *self._forward_batch(wav, lens))
+                ring.sent()
 
             for i, p in enumerate(audio_paths):
                 try:
@@ -400,14 +392,15 @@ class _StagingRing:
     """Two host arenas that ``transcribe_files`` pads its batches into in
     turn, so one is filled while the card copies from the other. On CUDA
     they are page-locked and ``_forward_batch`` copies from them
-    asynchronously; an arena is refilled only once the events recorded
-    after its copies (``copies``: arena address -> events) have fired.
-    Both are sized for the largest batch seen and grow together."""
+    asynchronously, and an arena is refilled only once the event ``sent``
+    recorded after its batch has fired. Both are sized for the largest batch
+    seen and grow together."""
 
-    def __init__(self, pinned, copies):
-        self.pinned = pinned
-        self.copies = copies
+    def __init__(self, device):
+        self.device = device
+        self.pinned = device.type == "cuda"
         self.arenas = []  # [(waveforms, lengths)], flat
+        self.events = [None, None]  # the event after each arena's last batch
         self.turn = 0
 
     def stage(self, rows, S, batch_size):
@@ -416,19 +409,18 @@ class _StagingRing:
         lengths), views of the next arena holding what a batch made by
         ``np.zeros`` would: each row zero-padded, padding rows all zero with
         length 1 (so zero valid output frames)."""
-        if not self.arenas or batch_size * S > self.arenas[0][0].numel() \
-                or batch_size > self.arenas[0][1].numel():
-            for wav_arena, _ in self.arenas:
-                self._wait(wav_arena)
-            n, b = batch_size * S, batch_size
-            if self.arenas:
-                n, b = max(n, self.arenas[0][0].numel()), max(b, self.arenas[0][1].numel())
+        have = tuple(a.numel() for a in self.arenas[0]) if self.arenas else (0, 0)
+        n, b = max(batch_size * S, have[0]), max(batch_size, have[1])
+        if (n, b) != have:
+            for i in (0, 1):
+                self._wait(i)
             self.arenas = [(torch.empty(n, dtype=torch.float32, pin_memory=self.pinned),
                             torch.empty(b, dtype=torch.int32, pin_memory=self.pinned))
                            for _ in range(2)]
-        wav_arena, len_arena = self.arenas[self.turn]
+        i = self.turn
         self.turn ^= 1
-        self._wait(wav_arena)
+        self._wait(i)
+        wav_arena, len_arena = self.arenas[i]
         wav, lens = wav_arena[:batch_size * S].view(batch_size, S), len_arena[:batch_size]
         w, n = wav.numpy(), lens.numpy()
         for j, x in enumerate(rows):
@@ -439,8 +431,17 @@ class _StagingRing:
         n[len(rows):] = 1
         return wav, lens
 
-    def _wait(self, wav_arena):
-        for event in self.copies.pop(wav_arena.data_ptr(), ()):
+    def sent(self):
+        """The batch staged last was dispatched: on CUDA its arena's event
+        goes on the device's stream, which every replica's copies precede."""
+        if self.pinned:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self.events[self.turn ^ 1] = event
+
+    def _wait(self, i):
+        event, self.events[i] = self.events[i], None
+        if event is not None:
             event.synchronize()
 
 

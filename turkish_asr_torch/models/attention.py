@@ -110,6 +110,12 @@ def in_dense_product():
     return _DENSE.depth > 0
 
 
+def add_bias(out, bias, compute_dtype):
+    """A product's bias added in fp32, the sum cast to ``compute_dtype``:
+    how every linear layer and convolution of the model ends."""
+    return (out.float() + bias.float()).to(compute_dtype)
+
+
 def dense(linear, x, compute_dtype, group=None):
     """``x @ W^T + b``: the product in ``compute_dtype``, the bias added in
     fp32, the result cast back to ``compute_dtype``.
@@ -126,7 +132,7 @@ def dense(linear, x, compute_dtype, group=None):
         out = torch.matmul(x.to(compute_dtype), linear.weight.to(compute_dtype).t())
     finally:
         _DENSE.depth -= 1
-    return (reduce_from(out.float(), group) + linear.bias.float()).to(compute_dtype)
+    return add_bias(reduce_from(out.float(), group), linear.bias, compute_dtype)
 
 
 class RotaryEmbedding(nn.Module):

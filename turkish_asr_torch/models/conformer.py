@@ -16,7 +16,7 @@ the arithmetic is written out so its cast points follow the JAX package:
   trainer commits it once per applied step, never in a recompute and never
   on a skipped step (JAX returns it functionally for the same reason).
 - dense layers and convolutions: the product in the compute dtype, the
-  bias added in fp32, then cast back.
+  bias added in fp32, then cast back (``add_bias``).
 - the padding mask is ``arange(T') < input_lengths // 4``; the subsample
   output flattens channel-major, (C, F).
 - training dropout (rate ``cfg.dropout``) after the SwiGLU gate product
@@ -43,9 +43,10 @@ function, with the collectives of ``parallel/collectives.py``:
 - dropout draws each mask at the one-process shape and takes this rank's
   slice, so replicated activations get the same mask on every rank.
 
-``ModelConfig.block`` picks the block. ``"flagship"`` (the default) is the
-reference model's above. ``"conformer"`` is Conformer (L)'s (Gulati et al.
-2020, arXiv:2005.08100), every module pre-norm:
+``ModelConfig.block`` names a ``Block`` in ``BLOCKS``, where a new
+architecture goes. ``"flagship"`` (the default) is the reference model's
+above. ``"conformer"`` is Conformer (L)'s (Gulati et al. 2020,
+arXiv:2005.08100), every module pre-norm:
 
 - ``x1 = x + FFN(x) / 2``, FFN = LayerNorm -> Linear(d, 4d) -> Swish ->
   Linear(4d, d) (``ff1``, ``norm_ff1``; ``ff2``, ``norm_ff2`` after the conv)
@@ -61,9 +62,10 @@ LayerNorm takes fp32 statistics and returns the input's dtype, as
 k = 32. With padded frames zeroed before it, LayerNorm per frame, BatchNorm
 on running statistics and positions that depend only on i - j, a file's
 logits do not depend on its bucket or its batch. The subsample takes ReLU.
-The block serves only: it refuses a mesh and training.
+The block serves only (bf16 only on CUDA): it refuses a mesh and training.
 """
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -74,7 +76,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from turkish_asr_torch.models.attention import (
-    MultiQueryAttention, RelPositionMultiHeadAttention, dense, in_dense_product)
+    MultiQueryAttention, RelPositionMultiHeadAttention, add_bias, dense, in_dense_product)
 from turkish_asr_torch.parallel.collectives import all_gather, all_reduce, copy_to, halo
 from turkish_asr_torch.parallel.mesh import axis_group, seq_bounds, shard_seed
 
@@ -93,16 +95,13 @@ class ModelConfig:
     # Exclude padded frames from GroupNorm/BatchNorm statistics (opt-in;
     # the reference lets padding leak into them).
     masked_norm: bool = False
-    # "flagship" (the reference model's block) or "conformer" (Conformer
-    # (L)'s: LayerNorm, Swish, relative-position attention; serving only).
+    # a key of BLOCKS: "flagship" (the reference model's block) or "conformer"
+    # (Conformer (L)'s: LayerNorm, Swish, relative-position attention; serving only).
     block: str = "flagship"
 
     def __post_init__(self):
         if self.block not in BLOCKS:
-            raise ValueError(f"block must be one of {BLOCKS}, got {self.block!r}")
-
-
-BLOCKS = ("flagship", "conformer")
+            raise ValueError(f"block must be one of {tuple(BLOCKS)}, got {self.block!r}")
 
 
 def groupnorm_groups(num_channels, preferred=32):
@@ -212,11 +211,6 @@ class SwiGLUFeedForward(nn.Module):
         return dropout(dense(self.linear2, h, compute_dtype, model), rate, seeds[1], span)
 
 
-def _conv_out(out, bias, compute_dtype):
-    """Conv product in the compute dtype -> fp32 bias add -> compute dtype."""
-    return (out.float() + bias.float()).to(compute_dtype)
-
-
 def batch_norm_train(bn, x, mask=None, momentum=0.1, group=None):
     """BatchNorm over (B, T, C) with batch statistics, as
     torch.nn.BatchNorm1d trains: the biased variance normalizes, the
@@ -248,35 +242,36 @@ def batch_norm_train(bn, x, mask=None, momentum=0.1, group=None):
     return (xn * bn.weight + bn.bias).to(x.dtype), (new_mean.detach(), new_var.detach())
 
 
-class ConformerConvModule(nn.Module):
-    """GroupNorm -> pointwise(2d) -> GLU -> depthwise(k) -> BN -> SiLU -> pointwise."""
+class _ConvModule(nn.Module):
+    """A conv module's layers after its norm (the subclass's) and their chain."""
 
     mesh = None
 
-    def __init__(self, d_model, kernel_size):
+    def __init__(self, norm, d_model, kernel_size, padding):
         super().__init__()
-        self.norm = TransposeGroupNorm(d_model)
+        self.norm = norm
         self.pointwise_conv1 = nn.Conv1d(d_model, 2 * d_model, 1)
-        self.depthwise_conv = nn.Conv1d(d_model, d_model, kernel_size,
-                                        padding=(kernel_size - 1) // 2, groups=d_model)
+        self.depthwise_conv = nn.Conv1d(d_model, d_model, kernel_size, padding=padding,
+                                        groups=d_model)
         self.batch_norm = nn.BatchNorm1d(d_model)
         self.pointwise_conv2 = nn.Conv1d(d_model, d_model, 1)
 
-    def forward(self, x, compute_dtype, norm_mask=None, train=False, span=None):
-        """-> output, or (output, new BatchNorm running stats) with ``train``.
-        Over "seq" (``span``: this rank's frames t0:t1 of T) the depthwise
-        convolution takes (k-1)/2 frames of halo from the ranks beside."""
-        d = x.shape[-1]
+    def chain(self, h, compute_dtype, mask=None, pre_mask=False, train=False, span=None):
+        """Normalized h -> pointwise(2d) -> GLU -> frames off ``mask`` (B, T)
+        zeroed (before the pointwise too with ``pre_mask``) -> depthwise ->
+        BatchNorm (``train``: the masked batch's statistics; -> (output, new
+        running stats)) -> SiLU -> pointwise. Over "seq" (``span``: this
+        rank's frames t0:t1 of T) the depthwise takes its padding as halo."""
+        d = h.shape[-1]
         cd = compute_dtype
-        h = self.norm(x, norm_mask)
-        if norm_mask is not None:
-            h = torch.where(norm_mask[:, :, None], h, 0)
+        if pre_mask and mask is not None:
+            h = torch.where(mask[:, :, None], h, 0)
         # Pointwise convs are (B, T, C) products with the (O, I, 1) kernel.
         w1 = self.pointwise_conv1.weight[:, :, 0].to(cd)
-        h = _conv_out(torch.matmul(h.to(cd), w1.t()), self.pointwise_conv1.bias, cd)
+        h = add_bias(torch.matmul(h.to(cd), w1.t()), self.pointwise_conv1.bias, cd)
         h = h[..., :d] * torch.sigmoid(h[..., d:])  # GLU over channels
-        if norm_mask is not None:
-            h = torch.where(norm_mask[:, :, None], h, 0)  # bias leaks via pw1
+        if mask is not None:
+            h = torch.where(mask[:, :, None], h, 0)  # bias leaks via pw1
         dw = self.depthwise_conv
         seq = axis_group(self.mesh, "seq")
         if seq is None:
@@ -286,23 +281,63 @@ class ConformerConvModule(nn.Module):
             sizes = [b - a for a, b in seq_bounds(span[2], seq.size)]
             h = halo(h.to(cd), dw.padding[0], seq, sizes)
             h = F.conv1d(h.transpose(1, 2), dw.weight.to(cd), groups=dw.groups)
-        h = _conv_out(h.transpose(1, 2), dw.bias, cd)
+        if 2 * dw.padding[0] == dw.kernel_size[0]:  # an even kernel padded k//2 a side
+            h = h[..., 1:]
+        h = add_bias(h.transpose(1, 2), dw.bias, cd)
         bn = self.batch_norm
         if train:
-            h, stats = batch_norm_train(bn, h, norm_mask,
-                                        group=axis_group(self.mesh, "data", "seq"))
+            h, stats = batch_norm_train(bn, h, mask, group=axis_group(self.mesh, "data", "seq"))
         else:
             hn = (h.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
             h = (hn * bn.weight + bn.bias).to(cd)
         h = F.silu(h)
         w2 = self.pointwise_conv2.weight[:, :, 0].to(cd)
-        out = _conv_out(torch.matmul(h, w2.t()), self.pointwise_conv2.bias, cd)
+        out = add_bias(torch.matmul(h, w2.t()), self.pointwise_conv2.bias, cd)
         return (out, stats) if train else out
 
 
-class ConformerBlock(nn.Module):
-    mesh = None
+class ConformerConvModule(_ConvModule):
+    """GroupNorm -> ``chain``, the depthwise padded (k-1)//2 on both sides."""
 
+    def __init__(self, d_model, kernel_size):
+        super().__init__(TransposeGroupNorm(d_model), d_model, kernel_size, (kernel_size - 1) // 2)
+
+    def forward(self, x, compute_dtype, norm_mask=None, train=False, span=None):
+        return self.chain(self.norm(x, norm_mask), compute_dtype, norm_mask, True, train, span)
+
+
+class Frames:
+    """A forward's valid frames after the subsample, for every block:
+    ``mask`` (B, T') bool, or None when all are valid, and ``lengths`` (B,)
+    int32 counts clamped to T', made when first read (nothing launched
+    for a block that never reads them)."""
+
+    def __init__(self, mask, counts, B, T, device):
+        self.mask, self._made_of = mask, (counts, B, T, device)
+
+    @functools.cached_property
+    def lengths(self):
+        counts, B, T, device = self._made_of
+        if counts is None:
+            counts = torch.full((B,), T, dtype=torch.int64, device=device)
+        return torch.clamp(counts, max=T).to(torch.int32)
+
+
+class Block(nn.Module):
+    """A block of ``BLOCKS``: ``forward(x (B, T', d), frames, compute_dtype,
+    train=False, seed=None, attn_kernel=True)`` -> output, or with ``train``
+    (output, new BatchNorm running mean, var); ``seed`` (the block's) keys
+    its dropout. Its subsample's activation and what it serves go with it."""
+
+    mesh = None
+    subsample_act = nn.SiLU
+
+    @staticmethod
+    def serving_refusal(compute_dtype, device):
+        """Why the block cannot serve in ``compute_dtype`` on ``device``, or None."""
+
+
+class ConformerBlock(Block):
     def __init__(self, cfg):
         super().__init__()
         d, d_ff = cfg.d_model, cfg.d_model * cfg.ff_mult
@@ -319,11 +354,9 @@ class ConformerBlock(nn.Module):
         self.masked_norm = cfg.masked_norm
         self.dropout = cfg.dropout
 
-    def forward(self, x, mask, compute_dtype, train=False, seed=None, attn_kernel=True):
-        """-> output, or (output, new BatchNorm running mean, var) with
-        ``train``; ``seed`` (the block's) keys its dropout masks. Over
-        "seq" x holds this rank's frames and ``mask`` all T' frames.
-        ``attn_kernel=False``: the attention core's plain version."""
+    def forward(self, x, frames, compute_dtype, train=False, seed=None, attn_kernel=True):
+        """Over "seq" x holds this rank's frames and the mask all T'."""
+        mask = frames.mask
         seq = axis_group(self.mesh, "seq")
         T = x.shape[1] if seq is None else mask.shape[1]
         t0, t1 = (0, T) if seq is None else seq_bounds(T, seq.size)[seq.index]
@@ -369,46 +402,30 @@ class SwishFeedForward(nn.Module):
         return dense(self.linear2, F.silu(dense(self.linear1, x, compute_dtype)), compute_dtype)
 
 
-class LayerNormConvModule(nn.Module):
-    """LayerNorm -> pointwise(2d) -> GLU -> padded frames zeroed ->
-    depthwise(k, TensorFlow's SAME padding) -> BatchNorm -> Swish -> pointwise."""
+class LayerNormConvModule(_ConvModule):
+    """LayerNorm -> ``chain``, the depthwise padded as TensorFlow's SAME: k//2
+    on both sides and an even kernel's first output dropped, leaving
+    (k-1)//2 frames before and k//2 after."""
 
     def __init__(self, d_model, kernel_size):
-        super().__init__()
-        self.norm = nn.LayerNorm(d_model)
-        self.pointwise_conv1 = nn.Conv1d(d_model, 2 * d_model, 1)
-        # padding k//2 on both sides; an even kernel drops the first output,
-        # leaving (k-1)//2 frames before and k//2 after
-        self.depthwise_conv = nn.Conv1d(d_model, d_model, kernel_size, padding=kernel_size // 2,
-                                        groups=d_model)
-        self.batch_norm = nn.BatchNorm1d(d_model)
-        self.pointwise_conv2 = nn.Conv1d(d_model, d_model, 1)
+        super().__init__(nn.LayerNorm(d_model), d_model, kernel_size, kernel_size // 2)
 
     def forward(self, x, mask, compute_dtype):
-        d = x.shape[-1]
-        cd = compute_dtype
-        h = layer_norm(self.norm, x)
-        w1 = self.pointwise_conv1.weight[:, :, 0].to(cd)
-        h = _conv_out(torch.matmul(h.to(cd), w1.t()), self.pointwise_conv1.bias, cd)
-        h = h[..., :d] * torch.sigmoid(h[..., d:])
-        if mask is not None:
-            h = torch.where(mask[:, :, None], h, 0)
-        dw = self.depthwise_conv
-        h = F.conv1d(h.transpose(1, 2), dw.weight.to(cd), padding=dw.padding, groups=dw.groups)
-        if dw.kernel_size[0] % 2 == 0:
-            h = h[..., 1:]
-        h = _conv_out(h.transpose(1, 2), dw.bias, cd)
-        bn = self.batch_norm
-        hn = (h.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
-        h = F.silu((hn * bn.weight + bn.bias).to(cd))
-        w2 = self.pointwise_conv2.weight[:, :, 0].to(cd)
-        return _conv_out(torch.matmul(h, w2.t()), self.pointwise_conv2.bias, cd)
+        return self.chain(layer_norm(self.norm, x), compute_dtype, mask)
 
 
-class RelPosConformerBlock(nn.Module):
+class RelPosConformerBlock(Block):
     """Conformer (L)'s block (the module docstring's equations)."""
 
-    mesh = None
+    subsample_act = nn.ReLU
+
+    @staticmethod
+    def serving_refusal(compute_dtype, device):
+        # the relative-position attention kernel takes bf16 q, k, v and p
+        if device.type == "cuda" and compute_dtype != torch.bfloat16:
+            return ("a Conformer (L) checkpoint (block='conformer'); on CUDA it serves in "
+                    "bfloat16 only")
+        return None
 
     def __init__(self, cfg):
         super().__init__()
@@ -422,18 +439,24 @@ class RelPosConformerBlock(nn.Module):
         self.norm_ff2 = nn.LayerNorm(d)
         self.final_norm = nn.LayerNorm(d)
 
-    def forward(self, x, mask, lengths, compute_dtype, attn_kernel=True):
-        """x (B, T, d); mask (B, T) valid frames or None; lengths (B,) their
-        counts. ``attn_kernel=False``: the attention core's plain version."""
+    def forward(self, x, frames, compute_dtype, train=False, seed=None, attn_kernel=True):
         if self.mesh is not None:
             raise NotImplementedError("the Conformer (L) block runs on one process; it has "
                                       "no mesh axes")
+        if train:
+            raise NotImplementedError("training the Conformer (L) block is not implemented: "
+                                      "its attention has no backward kernel")
         cd = compute_dtype
+        lengths = frames.lengths
         x = x + 0.5 * self.ff1(layer_norm(self.norm_ff1, x), cd)
         x = x + self.attn(layer_norm(self.norm_attn, x), lengths, cd, attn_kernel)
-        x = x + self.conv(x, mask, cd)
+        x = x + self.conv(x, frames.mask, cd)
         x = x + 0.5 * self.ff2(layer_norm(self.norm_ff2, x), cd)
         return layer_norm(self.final_norm, x)
+
+
+# The blocks ``ModelConfig.block`` names.
+BLOCKS = {"flagship": ConformerBlock, "conformer": RelPosConformerBlock}
 
 
 def dots_saveable(ctx, op, *args, **kwargs):
@@ -449,15 +472,10 @@ def dots_saveable(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def dots_context():
-    """``torch.utils.checkpoint``'s ``context_fn`` for ``dots_saveable``."""
-    return create_selective_checkpoint_contexts(dots_saveable)
-
-
 class ConformerCTC(nn.Module):
-    """Two stride-2 Conv2d + SiLU subsample (ReLU for the ``conformer``
-    block), input projection, Conformer blocks, linear CTC head.
-    ``forward`` returns fp32 logits."""
+    """Two stride-2 Conv2d subsample, each with the block's
+    ``subsample_act``, input projection, the blocks ``BLOCKS[cfg.block]``
+    names, linear CTC head. ``forward`` returns fp32 logits."""
 
     mesh = None
 
@@ -465,13 +483,11 @@ class ConformerCTC(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        relpos = cfg.block == "conformer"
-        act = nn.ReLU if relpos else nn.SiLU
+        self.block_type = block = BLOCKS[cfg.block]
         self.subsample = nn.Sequential(
-            nn.Conv2d(1, d, 3, stride=2, padding=1), act(),
-            nn.Conv2d(d, d, 3, stride=2, padding=1), act())
+            nn.Conv2d(1, d, 3, stride=2, padding=1), block.subsample_act(),
+            nn.Conv2d(d, d, 3, stride=2, padding=1), block.subsample_act())
         self.input_proj = nn.Linear(d * (cfg.n_mels // 4), d)
-        block = RelPosConformerBlock if relpos else ConformerBlock
         self.blocks = nn.ModuleList(block(cfg) for _ in range(cfg.n_blocks))
         self.fc = nn.Linear(d, cfg.n_classes)
 
@@ -494,15 +510,14 @@ class ConformerCTC(nn.Module):
         ``attn_kernel=None``): the bench's kernel-off runs pass it; the
         default is the kernel."""
         cd = compute_dtype
-        relpos = self.cfg.block == "conformer"
-        act = F.relu if relpos else F.silu
         h = x[:, None].to(cd)  # (B, 1, T, F)
-        for conv in (self.subsample[0], self.subsample[2]):
+        conv1, act1, conv2, act2 = self.subsample
+        for conv, act in ((conv1, act1), (conv2, act2)):
             h = F.conv2d(h, conv.weight.to(cd), stride=2, padding=1)
-            h = act((h.float() + conv.bias.float()[:, None, None]).to(cd))
+            h = act(add_bias(h, conv.bias[:, None, None], cd))
         B, C, Th, Fh = h.shape
         h = h.permute(0, 2, 1, 3).reshape(B, Th, C * Fh)  # channel-major (C, F)
-        mask = None
+        mask = sub = None
         if input_lengths is not None:
             sub = input_lengths.to(torch.int64) // 4
             mask = torch.arange(Th, device=h.device)[None, :] < sub[:, None]
@@ -513,42 +528,26 @@ class ConformerCTC(nn.Module):
             if mask is None:
                 mask = torch.ones((B, Th), dtype=torch.bool, device=h.device)
         h = dense(self.input_proj, h, cd)
-        if relpos:
-            return self._forward_relpos(h, mask, sub if input_lengths is not None else None, cd,
-                                        Th, train, attn_kernel)
+        frames = Frames(mask, sub, B, Th, h.device)
         if not train:
             for block in self.blocks:
-                h = block(h, mask, cd, attn_kernel=attn_kernel)
+                h = block(h, frames, cd, attn_kernel=attn_kernel)
             return self._logits(h, cd, Th)
         if remat not in (False, None, True, "full", "dots"):
             raise ValueError(f"remat must be False, 'full' or 'dots', got {remat!r}")
-        context = {"context_fn": dots_context} if remat == "dots" else {}
+        context = ({"context_fn": lambda: create_selective_checkpoint_contexts(dots_saveable)}
+                   if remat == "dots" else {})
         bn_state = []
         for i, block in enumerate(self.blocks):
             block_seed = None if seed is None else derive_seed(seed, i)
             if remat:
                 h, mean, var = torch.utils.checkpoint.checkpoint(
-                    block, h, mask, cd, True, block_seed, attn_kernel, use_reentrant=False,
+                    block, h, frames, cd, True, block_seed, attn_kernel, use_reentrant=False,
                     **context)
             else:
-                h, mean, var = block(h, mask, cd, True, block_seed, attn_kernel)
+                h, mean, var = block(h, frames, cd, True, block_seed, attn_kernel)
             bn_state.append((mean, var))
         return self._logits(h, cd, Th), bn_state
-
-    def _forward_relpos(self, h, mask, lengths, cd, T, train, attn_kernel):
-        """The ``conformer`` blocks: serving only, on one process."""
-        if self.mesh is not None:
-            raise NotImplementedError("the Conformer (L) block runs on one process; it has "
-                                      "no mesh axes")
-        if train:
-            raise NotImplementedError("training the Conformer (L) block is not implemented: "
-                                      "its attention has no backward kernel")
-        if lengths is None:
-            lengths = torch.full((h.shape[0],), T, dtype=torch.int64, device=h.device)
-        lengths = torch.clamp(lengths, max=T).to(torch.int32)
-        for block in self.blocks:
-            h = block(h, mask, lengths, cd, attn_kernel)
-        return self._logits(h, cd, T)
 
     def _logits(self, h, cd, T):
         """fp32 logits of the blocks' output; over "seq" those of all T
