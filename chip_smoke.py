@@ -90,10 +90,24 @@ Phases; any failure raises and the script exits non-zero.
    blocks, d 512, 8 heads, kernel 32, 1000 classes) loaded by
    ASRInference(pt, n_heads=8), which reads the block, heads and kernel
    from the checkpoint, and served by transcribe_files on four 25-32 s
-   WAVs at batch 2: the counter ``flash_attention_relpos_fwd`` must read
-   17 launches for each of the call's two forwards, and the served logits
+   WAVs at batch 2: the counters ``flash_attention_relpos_fwd`` and
+   ``bias_act`` must read 17 and 191 launches for each of the call's two
+   forwards (191 = 11 biased sites a block x 17 + the two subsample
+   convolutions, the input projection and the CTC head), and the served logits
    of a batch must lie within bf16's own error of the same batch through
    the plain core, their frames' argmaxes agreeing at 0.99.
+4c. Bias epilogue (csrc/bias_act.cu, the model's; it replaces no TPU
+   kernel): at each site of turkish_asr_torch/scripts/ab_bias_act.py (the
+   conformer_l cell's shapes: the two subsample convolutions' ReLU planes,
+   a Swish FFN's rows, a projection's, the CTC head's, pointwise 1's GLU with
+   a ragged mask, the even depthwise convolution's BatchNorm and SiLU; the
+   flagship cell's: its SiLU subsample planes at B=16 of 24 and 32 s, its
+   rows at d 256 and 1024, its GLU and its odd depthwise convolution's
+   BatchNorm and SiLU) the kernel must equal the plain chain bit for bit;
+   its device ms (20 calls queued behind a spin kernel), the plain chain's,
+   the bound (bytes over 3.35 TB/s) and the host microseconds a call of the
+   eager path, the op and the plain chain. Its launches a forward are read
+   on the served paths of phases 4b and 7.
 5. Training: a synthetic corpus (tones with character transcripts, 1-8 s)
    trained through turkish_asr_torch.main at flagship width (80 mels,
    d_model 256, 4 heads MQA, 8 blocks, char tokenizer, dropout 0.1,
@@ -113,7 +127,8 @@ Phases; any failure raises and the script exits non-zero.
    turkish_asr_torch.serve.server on 127.0.0.1 (/health, 1 s, 8 s, 24 s,
    timestamps, a 3-file batch) with 8 forward-kernel launches per forward,
    exactly 8 for the batch request (one batched forward: the per-file
-   fallback that serves a failed batched forward would launch 24);
+   fallback that serves a failed batched forward would launch 24), and 92
+   bias-epilogue launches a forward (8 x 11 + 4), exactly 92 for the batch;
    the 8 s input's bf16 logits held within bf16's own noise of the plain
    path's and at 0.99 frame-argmax agreement, its fp32 logits within 1e-3
    and 0.99 frame-argmax agreement of the plain path's, and fp32 on the
@@ -418,7 +433,7 @@ def kernel_bounds(name, **shape):
 
 
 LAUNCH_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd", "dropout_mask", "ctc_fwd",
-                   "ctc_bwd", "swiglu_fwd", "flash_attention_relpos_fwd")
+                   "ctc_bwd", "swiglu_fwd", "flash_attention_relpos_fwd", "bias_act")
 
 
 def _counts():
@@ -435,16 +450,19 @@ def _reset_counts(*names):
 
 
 def build_phase():
-    from turkish_asr_torch.ops import _build, ctc, flash_attention as fa, relpos_attention, swiglu
+    from turkish_asr_torch.ops import (
+        _build, bias_act, ctc, flash_attention as fa, relpos_attention, swiglu)
     libraries = {"flash_attention_fwd": fa.KERNEL_SOURCES, "flash_attention_bwd": fa.BWD_SOURCES,
                  "dropout_mask": fa.DUMP_SOURCES, "ctc_fwd": ctc.FWD_SOURCES,
                  "ctc_bwd": ctc.BWD_SOURCES, "swiglu_fwd": swiglu.SOURCES,
-                 "flash_attention_relpos_fwd": relpos_attention.KERNEL_SOURCES}
+                 "flash_attention_relpos_fwd": relpos_attention.KERNEL_SOURCES,
+                 "bias_act": bias_act.SOURCES}
     start = time.perf_counter()
     _build.build_all(libraries)
     fa.load_kernel(), fa.load_bwd_kernel(), fa.load_dump_kernel()
     ctc.load_fwd_kernel(), ctc.load_bwd_kernel(), swiglu.load_kernel()
     relpos_attention.load_kernel()
+    bias_act.load_kernel()
     print(f"kernel build + load ({len(libraries)} libraries in parallel): "
           f"{time.perf_counter() - start:.3f} s", flush=True)
     for name, sources in libraries.items():
@@ -908,6 +926,33 @@ def relpos_phase():
     return launches, err, times
 
 
+def bias_sites(cfg):
+    """Bias epilogue launches a forward of ``cfg``'s model: 11 biased sites
+    a block (two in each feed-forward, q, k, v and out, pointwise 1, the
+    depthwise convolution, pointwise 2), then the two subsample
+    convolutions, the input projection and the CTC head."""
+    return 11 * cfg.n_blocks + 4
+
+
+def bias_act_phase():
+    """Phase 4c: the bias epilogue (see the module docstring). Returns its
+    entry of the kernels line."""
+    from turkish_asr_torch.scripts import ab_bias_act
+
+    dev = torch.device("cuda")
+    sites = []
+    for name in ab_bias_act.SITES:
+        sites.append(ab_bias_act.site(name, dev))
+        torch.cuda.empty_cache()
+        if sites[-1]["ulps"] != 0:
+            raise AssertionError(f"bias epilogue off the plain chain at {sites[-1]}")
+    host = ab_bias_act.host(dev)
+    print(f"bias_act: {json.dumps(sites)}; host us a call {json.dumps(host)}", flush=True)
+    return {"name": "bias_act", "route": "cuda", "source": "turkish_asr_torch/csrc/bias_act.cu",
+            "replaces": None, "max_ulps": 0, "sites": sites, "library_ms": None,
+            "host_us": host, "path": "python -m turkish_asr_torch.scripts.ab_bias_act"}
+
+
 def _conformer_l_served():
     """A seeded Conformer (L) ``.pt`` (the port's ``init_model``, 17 blocks,
     d 512, 8 heads, kernel 32, 1000 classes) served by
@@ -944,14 +989,19 @@ def _conformer_l_served():
         asr._forward_batch = _timed(asr._forward_batch, forwards, "ms")
         asr.transcribe_files(paths, batch_size=2)  # the bucket's first forwards
         calls = len(forwards["ms"])
-        _reset_counts("flash_attention_relpos_fwd")
+        _reset_counts("flash_attention_relpos_fwd", "bias_act")
         texts = asr.transcribe_files(paths, batch_size=2)
         launches = _counts()["flash_attention_relpos_fwd"]
+        bias_launches = _counts()["bias_act"]
         calls = len(forwards["ms"]) - calls
         if calls != 2 or launches != cfg.n_blocks * calls:
             raise AssertionError(f"transcribe_files made {calls} forwards (want 2) and "
                                  f"launched the kernel {launches} times (want {cfg.n_blocks} "
                                  f"a forward)")
+        if bias_launches != bias_sites(cfg) * calls:
+            raise AssertionError(f"transcribe_files launched the bias epilogue {bias_launches} "
+                                 f"times over {calls} forwards (want {bias_sites(cfg)} a "
+                                 f"forward)")
 
         # The served batch's logits against the plain core's (bf16, and fp32
         # for the size of bf16's own error), on the two longest files.
@@ -980,6 +1030,7 @@ def _conformer_l_served():
             return float(np.mean(a.argmax(-1) == b.argmax(-1)))
 
         served = {"forwards": calls, "forward_ms": forwards["ms"][-calls:],
+                  "bias_act_a_forward": bias_launches // calls,
                   "max_kernel_plain": float(np.abs(kernel - plain).max()),
                   "max_plain_bf16_fp32": float(np.abs(plain - plain_fp32).max()),
                   "rms_kernel_fp32": rms(kernel, plain_fp32),
@@ -1204,9 +1255,10 @@ def train_phase(workdir):
 
 
 def gradient_check():
-    """One fp32 train step, kernels against plain versions, same seeds."""
+    """One fp32 train step, kernels against plain versions (attention, CTC
+    and the bias epilogue), same seeds."""
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
-    from turkish_asr_torch.ops import ctc, flash_attention as fa
+    from turkish_asr_torch.ops import bias_act, ctc, flash_attention as fa
     from turkish_asr_torch.ops._ctc import ctc_bwd_ref, ctc_fwd_ref, ctc_topology
     from turkish_asr_torch.ops._flash_attention import (
         flash_attention_bwd_ref, flash_attention_fwd_stats_ref)
@@ -1237,6 +1289,7 @@ def gradient_check():
     loss_k, grads_k, bn_k = step()
     with mock.patch.object(fa, "_fwd", flash_attention_fwd_stats_ref), \
             mock.patch.object(fa, "_bwd", flash_attention_bwd_ref), \
+            mock.patch.object(bias_act, "kernel_takes", lambda *a: False), \
             mock.patch.object(ctc, "_forward", lambda lp, tg, il, tl, blank: ctc_fwd_ref(
                 lp, *ctc_topology(tg, blank), il, tl)), \
             mock.patch.object(ctc, "_backward", lambda lp, tg, il, tl, alpha, nll, cot, blank:
@@ -1354,7 +1407,7 @@ def serving_phase(workdir):
             return f.read()
 
     try:
-        _reset_counts("flash_attention_fwd")
+        _reset_counts("flash_attention_fwd", "bias_act")
         forwards = 0
         with urllib.request.urlopen(base + "/health", timeout=60) as resp:
             health = json.loads(resp.read())
@@ -1375,10 +1428,11 @@ def serving_phase(workdir):
             raise AssertionError(f"/transcribe?timestamps=1: {status} {payload}")
         print(f"POST /transcribe?timestamps=1 s8: {ms:.2f} ms, "
               f"{len(payload['segments'])} segments", flush=True)
-        before = _counts()["flash_attention_fwd"]
+        before = _counts()
         status, payload, ms = _post(base + "/transcribe/batch",
                                     [("files", n + ".wav", read(n)) for n in ("b3", "b35", "b4")])
-        batch_launches = _counts()["flash_attention_fwd"] - before
+        batch_launches = _counts()["flash_attention_fwd"] - before["flash_attention_fwd"]
+        batch_bias = _counts()["bias_act"] - before["bias_act"]
         forwards += 1  # all three fall in the 4 s bucket: one batched forward
         results = payload.get("results") or []
         if status != 200 or len(results) != 3 or any(
@@ -1387,13 +1441,15 @@ def serving_phase(workdir):
         # One batched forward launches the forward kernel once a block; the
         # per-file fallback (the batched forward raised) would launch it
         # once a block and file.
-        if batch_launches != cfg.n_blocks:
+        if batch_launches != cfg.n_blocks or batch_bias != bias_sites(cfg):
             raise AssertionError(f"/transcribe/batch launched the attention forward "
-                                 f"{batch_launches} times; one batched forward launches "
-                                 f"{cfg.n_blocks}")
+                                 f"{batch_launches} times and the bias epilogue {batch_bias}; "
+                                 f"one batched forward launches {cfg.n_blocks} and "
+                                 f"{bias_sites(cfg)}")
         print(f"POST /transcribe/batch 3 files: {ms:.2f} ms, {batch_launches} attention forward "
               f"launches (one batched forward)", flush=True)
         launches = _counts()["flash_attention_fwd"]
+        bias_launches = _counts()["bias_act"]
     finally:
         server.shutdown()
         server.server_close()
@@ -1401,7 +1457,14 @@ def serving_phase(workdir):
     if launches < cfg.n_blocks * forwards:
         raise AssertionError(f"kernel launched {launches} times over {forwards} forwards; "
                              f"expected at least {cfg.n_blocks} per forward")
-    print(f"kernel launches on the served path: {launches} over {forwards} forwards", flush=True)
+    # every forward that launched the attention kernel at each block launched
+    # the bias epilogue at each biased site
+    if bias_launches != bias_sites(cfg) * (launches // cfg.n_blocks):
+        raise AssertionError(f"bias epilogue launched {bias_launches} times over "
+                             f"{launches // cfg.n_blocks} forwards; want {bias_sites(cfg)} a "
+                             f"forward")
+    print(f"kernel launches on the served path: {launches} over {forwards} forwards; bias "
+          f"epilogue {bias_launches}", flush=True)
 
     # Served (kernel) logits vs the same model with the plain attention.
     asr = service.asr
@@ -2924,6 +2987,7 @@ def main():
     times.update(ctc_times)
     swiglu_launches, err["swiglu_fwd"], times["swiglu_fwd"] = _phase("swiglu", swiglu_phase)
     relpos = _phase("relpos", relpos_phase)
+    bias = _phase("bias_act", bias_act_phase)
     with tempfile.TemporaryDirectory() as workdir:
         counts, pt, trained = _phase("training", train_phase, workdir)
         _phase("gradient check", gradient_check)
@@ -3014,6 +3078,7 @@ def main():
                     "source": "turkish_asr_torch/csrc/flash_attention_relpos_fwd.cu",
                     "replaces": None, "launches": launches, "max_abs_err": relpos_err,
                     **relpos_times, "path": "python -m turkish_asr_torch.scripts.ab_relpos"})
+    kernels.append(bias)
     print(json.dumps({"beam": beam}))
     print(json.dumps(numbers))
     print(json.dumps({"parallel": parallel}))

@@ -22,7 +22,8 @@ agree bit for bit. The dump kernel is bit-identical to the plain hash and
 launches one device kernel a call. The SwiGLU kernel is held within 2^-7
 max|plain| of the fused plain version (exact bf16 products summed in fp32
 in other orders, so g can round one bf16 ulp apart), and two calls agree
-bit for bit.
+bit for bit. The bias epilogue is bit for bit the plain chain it replaces,
+and a forward through it bit for bit the same forward through that chain.
 """
 
 import contextlib
@@ -35,6 +36,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from turkish_asr_torch.models import attention
 from turkish_asr_torch.models.attention import MultiQueryAttention
@@ -895,3 +897,342 @@ def test_staging_ring_refills_an_arena_only_after_its_copy(cuda, tmp_path):
     before = _launches("staged_pinned")
     assert asr.transcribe_files(files, batch_size=B) == parent_rule(asr, files, B)[0]
     assert _launches("staged_pinned") - before == 4  # 32000: 3 rows, 1; 64000: 3, 2
+
+
+# The bias epilogue (csrc/bias_act.cu): bit for bit the plain chain it
+# replaces (ops/bias_act.bias_act_plain) at the cells' shapes (B=32 rows of
+# 32 s, T'=801, d 512; the flagship's B=16 at 24 s, d 256), at sizes no
+# multiple of its 8-element vectors or of a wave of 132 SMs x 8 blocks, and
+# in every layout the wrapper takes. ``ulps`` is the largest distance in
+# bf16 ulps.
+BIAS_ACT_POINTWISE = [
+    ("none", (32 * 801, 512), -1, None), ("silu", (32 * 801, 2048), -1, None),
+    ("none", (32 * 801, 1000), -1, None), ("none", (16 * 601 + 3, 64), -1, None),
+    ("silu", (7, 37), -1, None), ("relu", (32, 512, 1601, 40), 1, None),
+    ("relu", (32, 512, 801, 20), 1, None), ("silu", (16, 256, 1201, 40), 1, None),
+    ("none", (3, 37, 5, 7), 1, None), ("relu", (4, 64, 33, 20), 1, "channels_last"),
+    ("none", (40, 96), -1, "transposed"), ("none", (16, 601, 256), -1, "transposed"),
+    ("silu", (4, 64, 33, 21), 1, "sliced")]
+
+
+def _bias_act_case(shape, width, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to(device, torch.bfloat16)
+    bias = (torch.rand(width, generator=g) - 0.5).to(device)
+    return x, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail,shape,dim,layout", BIAS_ACT_POINTWISE)
+def test_bias_act_kernel_is_the_plain_chain(cuda, tail, shape, dim, layout):
+    from turkish_asr_torch.ops.bias_act import bias_act, bias_act_plain
+    from turkish_asr_torch.scripts.ab_bias_act import ulps
+
+    x, bias = _bias_act_case(shape, shape[dim], cuda)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "transposed":  # the last two dims swapped in memory (training's depthwise)
+        x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif layout == "sliced":  # a view with gaps: the kernel runs on a dense copy
+        x = x[..., 1:]
+    want = bias_act_plain(x, bias, torch.bfloat16, tail, dim)
+    before = _launches("bias_act")
+    with torch.no_grad():
+        got = bias_act(x.clone() if layout is None else x, bias, torch.bfloat16, tail, dim=dim)
+    torch.cuda.synchronize()
+    # every layout: one launch, the plain chain's strides
+    assert _launches("bias_act") == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.stride() == want.stride() and ulps(got, want) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,masked", [(32, 801, 512, True), (16, 601, 256, False),
+                                          (3, 5, 37, True)])
+def test_bias_act_glu_is_the_plain_chain(cuda, B, T, C, masked):
+    from turkish_asr_torch.ops.bias_act import bias_act, bias_act_plain
+    from turkish_asr_torch.scripts.ab_bias_act import ulps
+
+    x, bias = _bias_act_case((B, T, 2 * C), 2 * C, cuda, seed=1)
+    mask = None
+    if masked:  # a full row, an empty one, then ragged
+        lens = torch.tensor(([T, 0] + _lengths(B + 1, T)[3:])[:B])
+        mask = (torch.arange(T)[None, :] < lens[:, None]).to(cuda)
+    want = bias_act_plain(x, bias, torch.bfloat16, "glu_mask", mask=mask)
+    with torch.no_grad():
+        got = bias_act(x, bias, torch.bfloat16, "glu_mask", mask=mask)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, C) and got.stride() == want.stride()
+    assert ulps(got, want) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["conv", "channels_major", "channels_last"])
+@pytest.mark.parametrize("B,C,T,k", [(32, 512, 801, 32), (16, 256, 601, 31), (3, 37, 50, 32)])
+def test_bias_act_bn_silu_is_the_plain_chain(cuda, B, C, T, k, layout):
+    """The depthwise convolution's output as cuDNN leaves it for a (B, T, C)
+    input seen as (B, C, T) ("conv"), the even kernel's first frame skipped
+    by the view, and the same values channel-major and channel-last (the
+    kernel's two read orders): the plain chain's values in its layout, which
+    decides the path of the product after it."""
+    from turkish_asr_torch.ops.bias_act import bias_act, bias_act_plain
+    from turkish_asr_torch.scripts.ab_bias_act import ulps
+
+    g = torch.Generator().manual_seed(2)
+    h = torch.randn(B, T, C, generator=g).to(cuda, torch.bfloat16)
+    w = (0.2 * torch.randn(C, 1, k, generator=g)).to(cuda, torch.bfloat16)
+    x = F.conv1d(h.transpose(1, 2), w, padding=k // 2, groups=C)
+    x = x[..., 1:] if k % 2 == 0 else x
+    if layout == "channels_major":
+        x = x.contiguous()
+    elif layout == "channels_last":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    bias = (torch.rand(C, generator=g) - 0.5).to(cuda)
+    bn = torch.nn.BatchNorm1d(C).to(cuda)
+    with torch.no_grad():
+        bn.running_mean.copy_(0.3 * torch.randn(C, generator=g))
+        bn.running_var.copy_(torch.rand(C, generator=g) + 0.5)
+        bn.weight.copy_(torch.rand(C, generator=g) + 0.5)
+        bn.bias.copy_(0.3 * torch.randn(C, generator=g))
+        params = (bn.running_mean, torch.rsqrt(bn.running_var + bn.eps), bn.weight, bn.bias)
+        want = bias_act_plain(x, bias, torch.bfloat16, "bn_silu", bn=params)
+        got = bias_act(x, bias, torch.bfloat16, "bn_silu", bn=bn)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, C) and got.stride() == want.stride()
+    assert ulps(got, want) == 0
+
+
+@pytest.mark.cuda
+def test_bias_act_op_on_the_card_is_the_kernel_out_of_place(cuda):
+    from turkish_asr_torch.ops.bias_act import bias_act
+
+    x, bias = _bias_act_case((801, 512), 512, cuda, seed=3)
+    keep = x.clone()
+    before = _launches("bias_act")
+    with torch.no_grad():
+        op = torch.ops.turkish_asr_torch.bias_act(x, bias, "silu", -1, None, None, None, None,
+                                                   None)
+        assert torch.equal(x, keep)  # the op writes a new tensor
+        eager = bias_act(x, bias, torch.bfloat16, "silu")
+    torch.cuda.synchronize()
+    assert eager.data_ptr() == x.data_ptr()  # the eager path writes over its product
+    assert torch.equal(op, eager) and _launches("bias_act") == before + 2
+
+
+def _bias_act_forward(model, B, seconds, cuda):
+    """(logits, bias_act launches) of one bf16 forward of B rows of
+    ``seconds`` s (ragged lengths) of seeded features."""
+    T = seconds * 100 + 1
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(B, T, 80, generator=g).to(cuda)
+    lens = torch.tensor(([T] + _lengths(B + 2, T)[3:])[:B], device=cuda)
+    before = _launches("bias_act")
+    with torch.inference_mode():
+        logits = model(x, lens, torch.bfloat16)
+    torch.cuda.synchronize()
+    return logits, _launches("bias_act") - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,B,seconds,launches", [("conformer_l", 32, 32, 191),
+                                                       ("flagship", 16, 24, 92),
+                                                       ("flagship", 16, 32, 92)])
+def test_forward_through_the_bias_epilogue_is_bit_for_bit(cuda, config, B, seconds, launches):
+    """One forward of each cell's model, with every biased site through the
+    kernel, gives the logits of the same forward through the plain chain bit
+    for bit, and launches the kernel at every site: 17 x 11 + 4 in Conformer
+    (L), 8 x 11 + 4 in the flagship."""
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    from turkish_asr_torch.ops import bias_act as ba
+
+    if config == "conformer_l":
+        model = _conformer_l(cuda)
+    else:
+        cfg = ModelConfig(n_mels=80, d_model=256, n_heads=4, n_blocks=8, n_classes=1000)
+        model = init_model(cfg, torch.Generator().manual_seed(0)).to(cuda).eval()
+    logits, n = _bias_act_forward(model, B, seconds, cuda)
+    with mock.patch.object(ba, "kernel_takes", lambda *a: False):
+        plain, n_plain = _bias_act_forward(model, B, seconds, cuda)
+    assert (n, n_plain) == (launches, 0)
+    assert torch.isfinite(logits).all() and torch.equal(logits, plain)
+
+
+def _bias_act_tail_case(tail, dtype, device, seed=5):
+    """(x, bias, dim, mask, bn) of one tail at a small ragged shape: rows
+    (601, 37), the subsample's planes (3, 37, 41, 5), a GLU of 2 x 37 with a
+    ragged mask, a depthwise output (3, 37, 65) with its first frame skipped."""
+    g = torch.Generator().manual_seed(seed)
+    C = 37
+    shape, dim = {"relu": ((3, C, 41, 5), 1), "glu_mask": ((3, 601, 2 * C), -1),
+                  "bn_silu": ((3, C, 66), 1)}.get(tail, ((601, C), -1))
+    x = torch.randn(shape, generator=g).to(device, dtype)
+    if tail == "bn_silu":
+        x = x[..., 1:]
+    bias = (torch.rand(shape[-1] if tail == "glu_mask" else C, generator=g) - 0.5).to(device)
+    mask = bn = None
+    if tail == "glu_mask":
+        mask = (torch.arange(601)[None, :] < torch.tensor([601, 0, 300])[:, None]).to(device)
+    if tail == "bn_silu":
+        bn = torch.nn.BatchNorm1d(C).to(device).eval()
+        with torch.no_grad():
+            bn.running_mean.copy_(0.3 * torch.randn(C, generator=g))
+            bn.running_var.copy_(torch.rand(C, generator=g) + 0.5)
+            bn.weight.copy_(torch.rand(C, generator=g) + 0.5)
+            bn.bias.copy_(0.3 * torch.randn(C, generator=g))
+    return x, bias, dim, mask, bn
+
+
+def _bn_tuple(bn):
+    return None if bn is None else (bn.running_mean, torch.rsqrt(bn.running_var + bn.eps),
+                                    bn.weight, bn.bias)
+
+
+BIAS_ACT_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,compute", BIAS_ACT_DTYPES)
+@pytest.mark.parametrize("tail", ["none", "relu", "silu", "glu_mask", "bn_silu"])
+def test_bias_act_fp32_products_are_the_plain_chain(cuda, tail, dtype, compute):
+    """fp32 compute, and an fp32 sum in bf16 (a row-parallel layer's): the
+    kernel too, one launch, the plain chain's values and strides."""
+    from turkish_asr_torch.ops.bias_act import bias_act, bias_act_plain
+
+    x, bias, dim, mask, bn = _bias_act_tail_case(tail, dtype, cuda)
+    with torch.no_grad():
+        want = bias_act_plain(x, bias, compute, tail, dim, mask, _bn_tuple(bn))
+        before = _launches("bias_act")
+        got = bias_act(x.clone(), bias, compute, tail, dim=dim, mask=mask, bn=bn)
+    torch.cuda.synchronize()
+    assert _launches("bias_act") == before + 1
+    assert got.dtype == compute and got.stride() == want.stride() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,compute", [(torch.bfloat16, torch.bfloat16), *BIAS_ACT_DTYPES])
+@pytest.mark.parametrize("tail", ["none", "relu", "silu", "glu_mask", "bn_silu"])
+def test_bias_act_with_a_gradient_is_the_kernel_and_the_plain_backward(cuda, tail, dtype,
+                                                                       compute):
+    """With a gradient to record the card still runs the kernel (the op, out
+    of place), and the gradients of the product, the bias and BatchNorm's
+    weight and shift are the plain chain's bit for bit."""
+    from turkish_asr_torch.ops.bias_act import bias_act, bias_act_plain
+
+    x, bias, dim, mask, bn = _bias_act_tail_case(tail, dtype, cuda, seed=6)
+
+    def run(fn):
+        xs = x.detach().clone().requires_grad_(True)
+        bs = bias.detach().clone().requires_grad_(True)
+        if bn is not None:
+            bn.zero_grad(set_to_none=True)
+        out = fn(xs, bs)
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(cuda,
+                                                                                  out.dtype)
+        out.backward(cot)
+        extra = [] if bn is None else [bn.weight.grad, bn.bias.grad]
+        return out.detach(), [xs.grad, bs.grad, *extra]
+
+    before = _launches("bias_act")
+    got, got_grads = run(lambda xs, bs: bias_act(xs, bs, compute, tail, dim=dim, mask=mask,
+                                                 bn=bn))
+    torch.cuda.synchronize()
+    assert _launches("bias_act") == before + 1
+    want, want_grads = run(lambda xs, bs: bias_act_plain(xs, bs, compute, tail, dim, mask,
+                                                         _bn_tuple(bn)))
+    assert got.stride() == want.stride() and torch.equal(got, want)
+    for a, b in zip(got_grads, want_grads):
+        assert a.dtype == b.dtype and a.stride() == b.stride() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bias_act_glu_refuses_a_product_that_is_not_contiguous(cuda):
+    from turkish_asr_torch.ops.bias_act import bias_act
+
+    x, bias = _bias_act_case((74, 40), 74, cuda)
+    with pytest.raises(ValueError, match="contiguous"), torch.no_grad():
+        bias_act(x.t(), bias, torch.bfloat16, "glu_mask")
+
+
+@pytest.mark.cuda
+def test_exported_bf16_forward_is_the_eager_forward(cuda):
+    """A ``torch.export`` program of a bf16 forward holds the op
+    ``turkish_asr_torch.bias_act``, launches the kernel at every biased site
+    and gives the eager forward's logits bit for bit (the op writes the
+    plain chain's layout, as the eager path does)."""
+    from turkish_asr_torch.export_model import MAX_BATCH, MAX_T4
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+
+    cfg = ModelConfig(n_mels=80, d_model=64, n_heads=2, n_blocks=3, n_classes=56, dropout=0.0)
+    model = init_model(cfg, torch.Generator().manual_seed(0)).to(cuda).eval()
+
+    class Bf16(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, features):
+            return self.model(features, None, torch.bfloat16)
+
+    x = torch.randn(5, 124, 80, generator=torch.Generator().manual_seed(1)).to(cuda)
+    # dynamic batch and time, as export_model.export_program exports
+    dims = {"features": {0: torch.export.Dim("batch", min=1, max=MAX_BATCH),
+                         1: 4 * torch.export.Dim("t4", min=2, max=MAX_T4)}}
+    with torch.no_grad():
+        want = model(x, None, torch.bfloat16)
+        program = torch.export.export(Bf16(), (x,), dynamic_shapes=dims, strict=False)
+    assert any("bias_act" in str(n.target) for n in program.graph.nodes)
+    before = _launches("bias_act")
+    with torch.no_grad():
+        got = program.module()(x)
+        torch.cuda.synchronize()
+        launches = _launches("bias_act") - before
+    assert launches == 11 * cfg.n_blocks + 4
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fp32_and_training_passes_through_the_bias_epilogue_are_bit_for_bit(cuda):
+    """The flagship model's fp32 forward and bf16 training steps, without
+    recomputation and with ``remat="dots"`` (loss and every gradient),
+    through the kernel equal the same passes through the plain chain; the
+    forward and the first step launch it at every biased site."""
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    from turkish_asr_torch.ops import bias_act as ba
+
+    cfg = ModelConfig(n_mels=80, d_model=64, n_heads=4, n_blocks=2, n_classes=56, dropout=0.0)
+    model = init_model(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.randn(3, 203, 80, generator=torch.Generator().manual_seed(1)).to(cuda)
+    lens = torch.tensor([203, 150, 77], device=cuda)
+
+    def step(remat):
+        model.train().zero_grad(set_to_none=True)
+        out, _ = model(x, lens, torch.bfloat16, train=True, seed=3, remat=remat,
+                       attn_kernel=False)
+        out.float().square().mean().backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+        return out.detach(), grads
+
+    def passes():
+        before = _launches("bias_act")
+        with torch.no_grad():
+            logits = model.eval()(x, lens, torch.float32)
+        steps = [step(False)]
+        torch.cuda.synchronize()
+        n = _launches("bias_act") - before
+        steps.append(step("dots"))
+        return logits, steps, n
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the convolutions' backward, run twice
+    try:
+        logits, steps, n = passes()
+        with mock.patch.object(ba, "kernel_takes", lambda *a: False):
+            plain_logits, plain_steps, n_plain = passes()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert (n, n_plain) == (2 * (11 * cfg.n_blocks + 4), 0)
+    assert torch.equal(logits, plain_logits)
+    for (out, grads), (plain_out, plain_grads) in zip(steps, plain_steps):
+        assert torch.equal(out, plain_out) and grads.keys() == plain_grads.keys()
+        for k in grads:
+            assert torch.equal(grads[k], plain_grads[k]), k

@@ -29,6 +29,8 @@ SLICE_MODULES = [
     "turkish_asr_torch.ops._relpos_attention",
     "turkish_asr_torch.ops.relpos_attention",
     "turkish_asr_torch.scripts.ab_relpos",
+    "turkish_asr_torch.ops.bias_act",
+    "turkish_asr_torch.scripts.ab_bias_act",
     "turkish_asr_torch.decode.greedy",
     "turkish_asr_torch.utils.device",
     "turkish_asr_torch.utils.errors",

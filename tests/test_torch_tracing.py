@@ -23,7 +23,7 @@ from turkish_asr_torch.inference import ASRInference  # noqa: E402
 from turkish_asr_torch.utils import tracing  # noqa: E402
 
 LAUNCH_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd", "dropout_mask", "ctc_fwd",
-                   "ctc_bwd", "swiglu_fwd")
+                   "ctc_bwd", "swiglu_fwd", "bias_act")
 N_BLOCKS = 2  # the shared checkpoint's
 
 
@@ -162,6 +162,7 @@ def test_counters_count_and_reset():
 def test_kernel_launch_counters_read_through_the_registry(name):
     """The kernel wrappers' counters exist once their modules load; the CPU
     path launches no kernel."""
+    import turkish_asr_torch.ops.bias_act  # noqa: F401
     import turkish_asr_torch.ops.ctc  # noqa: F401
     import turkish_asr_torch.ops.flash_attention  # noqa: F401
     import turkish_asr_torch.ops.swiglu  # noqa: F401

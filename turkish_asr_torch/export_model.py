@@ -14,11 +14,14 @@ stores none. Formats:
   batch and a dynamic time that is a multiple of 4, and written with
   ``torch.export.save`` (a ``.pt2``). The attention forward is the op
   ``turkish_asr_torch::flash_attention_fwd`` (``ops/flash_attention.py``),
-  one node a block, so the loaded program launches the hand-written
-  kernel on the card. Loading the file needs that op registered::
+  one node a block, and on the card each bias with its tail is the op
+  ``turkish_asr_torch::bias_act`` (``ops/bias_act.py``), so the loaded
+  program launches the hand-written kernels there. Loading the file needs
+  those ops registered::
 
       import torch
-      import turkish_asr_torch.ops.flash_attention  # registers the op
+      import turkish_asr_torch.ops.bias_act  # registers the ops
+      import turkish_asr_torch.ops.flash_attention
       program = torch.export.load("model.pt2").module()
       logits = program(features)  # (B, 4 t, n_mels) fp32 -> (B, t, n_classes)
 

@@ -5,8 +5,9 @@ Counterpart of turkish_asr_tpu/models/attention.py. Parameter names are the
 reference ``state_dict`` keys (``linear_q``, ``linear_k``, ``linear_v``,
 ``linear_out``, ``rotary_emb.inv_freq``). The cast points follow the JAX
 module: projections add their bias in fp32 and then cast to the compute
-dtype; the RoPE tables are cast to the activation dtype; the attention
-core is ``ops.flash_attention`` (the Hopper kernels on CUDA tensors, their
+dtype (``ops.bias_act``: one hand-written kernel on the card in bf16); the
+RoPE tables are cast to the activation dtype; the attention core is
+``ops.flash_attention`` (the Hopper kernels on CUDA tensors, their
 plain versions on CPU tensors; differentiable, with attention-weight
 dropout inside the kernel in training), which returns fp32 context. With
 ``attn_kernel=False`` (the bench's kernel-off runs, JAX's
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from turkish_asr_torch.ops.bias_act import bias_act
 from turkish_asr_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from turkish_asr_torch.ops.relpos_attention import relpos_attention, relpos_attention_plain
 from turkish_asr_torch.parallel.collectives import all_gather, copy_to, reduce_from
@@ -110,15 +112,10 @@ def in_dense_product():
     return _DENSE.depth > 0
 
 
-def add_bias(out, bias, compute_dtype):
-    """A product's bias added in fp32, the sum cast to ``compute_dtype``:
-    how every linear layer and convolution of the model ends."""
-    return (out.float() + bias.float()).to(compute_dtype)
-
-
-def dense(linear, x, compute_dtype, group=None):
-    """``x @ W^T + b``: the product in ``compute_dtype``, the bias added in
-    fp32, the result cast back to ``compute_dtype``.
+def dense(linear, x, compute_dtype, group=None, act="none"):
+    """``act(x @ W^T + b)``: the product in ``compute_dtype``, the bias added
+    in fp32, the result cast back to ``compute_dtype``, then ``act``
+    ("none", "relu" or "silu"), all in ``ops.bias_act``.
 
     JAX keeps the product in fp32 before the bias add; PyTorch has no
     bf16 GEMM with an fp32 result on the CPU, so under bf16 the product is
@@ -132,7 +129,9 @@ def dense(linear, x, compute_dtype, group=None):
         out = torch.matmul(x.to(compute_dtype), linear.weight.to(compute_dtype).t())
     finally:
         _DENSE.depth -= 1
-    return add_bias(reduce_from(out.float(), group), linear.bias, compute_dtype)
+    if group is not None:
+        out = reduce_from(out.float(), group)
+    return bias_act(out, linear.bias, compute_dtype, act)
 
 
 class RotaryEmbedding(nn.Module):

@@ -16,7 +16,8 @@ the arithmetic is written out so its cast points follow the JAX package:
   trainer commits it once per applied step, never in a recompute and never
   on a skipped step (JAX returns it functionally for the same reason).
 - dense layers and convolutions: the product in the compute dtype, the
-  bias added in fp32, then cast back (``add_bias``).
+  bias added in fp32, then cast back, with the elementwise tail after it
+  (``ops.bias_act``: one hand-written kernel on the card in bf16).
 - the padding mask is ``arange(T') < input_lengths // 4``; the subsample
   output flattens channel-major, (C, F).
 - training dropout (rate ``cfg.dropout``) after the SwiGLU gate product
@@ -76,7 +77,8 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from turkish_asr_torch.models.attention import (
-    MultiQueryAttention, RelPositionMultiHeadAttention, add_bias, dense, in_dense_product)
+    MultiQueryAttention, RelPositionMultiHeadAttention, dense, in_dense_product)
+from turkish_asr_torch.ops.bias_act import bias_act
 from turkish_asr_torch.parallel.collectives import all_gather, all_reduce, copy_to, halo
 from turkish_asr_torch.parallel.mesh import axis_group, seq_bounds, shard_seed
 
@@ -262,16 +264,14 @@ class _ConvModule(nn.Module):
         BatchNorm (``train``: the masked batch's statistics; -> (output, new
         running stats)) -> SiLU -> pointwise. Over "seq" (``span``: this
         rank's frames t0:t1 of T) the depthwise takes its padding as halo."""
-        d = h.shape[-1]
         cd = compute_dtype
         if pre_mask and mask is not None:
             h = torch.where(mask[:, :, None], h, 0)
         # Pointwise convs are (B, T, C) products with the (O, I, 1) kernel.
+        # GLU over channels, then padded frames zeroed (the bias leaks via pw1).
         w1 = self.pointwise_conv1.weight[:, :, 0].to(cd)
-        h = add_bias(torch.matmul(h.to(cd), w1.t()), self.pointwise_conv1.bias, cd)
-        h = h[..., :d] * torch.sigmoid(h[..., d:])  # GLU over channels
-        if mask is not None:
-            h = torch.where(mask[:, :, None], h, 0)  # bias leaks via pw1
+        h = bias_act(torch.matmul(h.to(cd), w1.t()), self.pointwise_conv1.bias, cd, "glu_mask",
+                     mask=mask)
         dw = self.depthwise_conv
         seq = axis_group(self.mesh, "seq")
         if seq is None:
@@ -283,16 +283,15 @@ class _ConvModule(nn.Module):
             h = F.conv1d(h.transpose(1, 2), dw.weight.to(cd), groups=dw.groups)
         if 2 * dw.padding[0] == dw.kernel_size[0]:  # an even kernel padded k//2 a side
             h = h[..., 1:]
-        h = add_bias(h.transpose(1, 2), dw.bias, cd)
         bn = self.batch_norm
         if train:
+            h = bias_act(h.transpose(1, 2), dw.bias, cd)
             h, stats = batch_norm_train(bn, h, mask, group=axis_group(self.mesh, "data", "seq"))
+            h = F.silu(h)
         else:
-            hn = (h.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
-            h = (hn * bn.weight + bn.bias).to(cd)
-        h = F.silu(h)
+            h = bias_act(h, dw.bias, cd, "bn_silu", bn=bn)  # (B, C, T) -> (B, T, C)
         w2 = self.pointwise_conv2.weight[:, :, 0].to(cd)
-        out = add_bias(torch.matmul(h, w2.t()), self.pointwise_conv2.bias, cd)
+        out = bias_act(torch.matmul(h, w2.t()), self.pointwise_conv2.bias, cd)
         return (out, stats) if train else out
 
 
@@ -399,7 +398,7 @@ class SwishFeedForward(nn.Module):
         self.linear2 = nn.Linear(d_ff, d_model)
 
     def forward(self, x, compute_dtype):
-        return dense(self.linear2, F.silu(dense(self.linear1, x, compute_dtype)), compute_dtype)
+        return dense(self.linear2, dense(self.linear1, x, compute_dtype, act="silu"), compute_dtype)
 
 
 class LayerNormConvModule(_ConvModule):
@@ -459,6 +458,11 @@ class RelPosConformerBlock(Block):
 BLOCKS = {"flagship": ConformerBlock, "conformer": RelPosConformerBlock}
 
 
+# The subsample activations that ``bias_act`` applies as its tail; another
+# runs after it.
+FUSED_ACTS = {nn.ReLU: "relu", nn.SiLU: "silu"}
+
+
 def dots_saveable(ctx, op, *args, **kwargs):
     """The ``--remat_policy dots`` checkpoint policy, JAX's
     ``dots_with_no_batch_dims_saveable`` (turkish_asr_tpu/train/trainer.py:63-77):
@@ -514,7 +518,10 @@ class ConformerCTC(nn.Module):
         conv1, act1, conv2, act2 = self.subsample
         for conv, act in ((conv1, act1), (conv2, act2)):
             h = F.conv2d(h, conv.weight.to(cd), stride=2, padding=1)
-            h = act(add_bias(h, conv.bias[:, None, None], cd))
+            tail = FUSED_ACTS.get(type(act))
+            h = bias_act(h, conv.bias, cd, tail or "none", dim=1)
+            if tail is None:
+                h = act(h)
         B, C, Th, Fh = h.shape
         h = h.permute(0, 2, 1, 3).reshape(B, Th, C * Fh)  # channel-major (C, F)
         mask = sub = None

@@ -3,7 +3,7 @@
 Counters (``count``, ``counters``) are always on: named integers under one
 lock. The kernel wrappers count their launches here (``flash_attention_fwd``,
 ``flash_attention_bwd``, ``dropout_mask``, ``ctc_fwd``, ``ctc_bwd``,
-``swiglu_fwd``, ``flash_attention_relpos_fwd``), ``ASRInference._forward_batch``
+``swiglu_fwd``, ``flash_attention_relpos_fwd``, ``bias_act``), ``ASRInference._forward_batch``
 the samples it is given (``forward_samples_valid``), the padded array's
 (``forward_samples_padded``) and the batches it copied from a page-locked
 arena (``staged_pinned``), ``ASRInference.transcribe_files`` the files it
