@@ -79,23 +79,29 @@ Phases; any failure raises and the script exits non-zero.
    launch one device kernel, the SwiGLU kernel. Median CUDA-event times
    of the kernel, the fused plain version and the chain at each shape.
 4b. Relative-position attention (csrc/flash_attention_relpos_fwd.cu, the
-   Conformer (L) block's; it replaces no TPU kernel): the kernel against
-   its plain version at the transcription cell's shape (B=32, H=8, T'=801,
-   D=64, bf16, key lengths in [601, 801]), within 2e-2 (tests/
-   test_torch_cuda.py says why); its device ms (20 calls queued behind a
-   spin kernel), the plain version's and the library composition's (SDPA
-   with the rel-shifted position term as a float mask,
+   "conformer" block's; it replaces no TPU kernel): the kernel against its
+   plain version at each shape of RELPOS_SHAPES, H=8, bf16, key lengths in
+   [T' - T'/4, T'] (Conformer (L)'s cell's B=32, T'=801, D=64; FastConformer
+   XXL's cell's B=4, T'=3201, D=128), each within 2e-2 (tests/
+   test_torch_cuda.py says why); at each its device ms (20 calls queued
+   behind a spin kernel), the plain version's and the library
+   composition's (SDPA with the rel-shifted position term as a float mask,
    turkish_asr_torch/scripts/ab_relpos.py) beside its bound. Then the
-   serving path: a seeded Conformer (L) .pt (the port's init_model; 17
-   blocks, d 512, 8 heads, kernel 32, 1000 classes) loaded by
-   ASRInference(pt, n_heads=8), which reads the block, heads and kernel
-   from the checkpoint, and served by transcribe_files on four 25-32 s
-   WAVs at batch 2: the counters ``flash_attention_relpos_fwd`` and
-   ``bias_act`` must read 17 and 191 launches for each of the call's two
-   forwards (191 = 11 biased sites a block x 17 + the two subsample
-   convolutions, the input projection and the CTC head), and the served logits
-   of a batch must lie within bf16's own error of the same batch through
-   the plain core, their frames' argmaxes agreeing at 0.99.
+   serving path of each model of SERVED: a seeded .pt (the port's
+   init_model) loaded by ASRInference(pt, n_heads=8), which reads the block,
+   heads, kernel and subsample from the checkpoint, and served by
+   transcribe_files on four WAVs at batch 2 (two forwards). Conformer (L)
+   (17 blocks, d 512, kernel 32, 1000 classes): four 25-32 s files at the
+   32 s bucket. FastConformer XXL (the 8x subsample, 42 blocks, d 1024,
+   kernel 9, 1025 classes; ASRInference(..., full_context_s=256)): four
+   195-250 s files whole at the 224 and 256 s buckets, no file chunked and
+   the four rows counted in ``full_context_rows``. The counters
+   ``flash_attention_relpos_fwd`` and ``bias_act``, reset just before the
+   call, must read one launch a block and ``bias_sites`` a forward (11 a
+   block + the subsample's convolutions, the input projection and the CTC
+   head: 191 and 469), and the served logits of a batch of the two longest
+   files must lie within bf16's own error of the same batch through the
+   plain core, as close to the fp32 path as the plain core's bf16 logits.
 4c. Bias epilogue (csrc/bias_act.cu, the model's; it replaces no TPU
    kernel): at each site of turkish_asr_torch/scripts/ab_bias_act.py (the
    conformer_l cell's shapes: the two subsample convolutions' ReLU planes,
@@ -103,6 +109,9 @@ Phases; any failure raises and the script exits non-zero.
    a ragged mask, the even depthwise convolution's BatchNorm and SiLU; the
    flagship cell's: its SiLU subsample planes at B=16 of 24 and 32 s, its
    rows at d 256 and 1024, its GLU and its odd depthwise convolution's
+   BatchNorm and SiLU; the fastconformer_xxl cell's: the 8x subsample's
+   ReLU planes at B=4 of 256 s, its depthwise convolutions' bias alone,
+   rows of d 1024, 4096 and 1025, its GLU and the depthwise kernel of 9's
    BatchNorm and SiLU) the kernel must equal the plain chain bit for bit;
    its device ms (20 calls queued behind a spin kernel), the plain chain's,
    the bound (bytes over 3.35 TB/s) and the host microseconds a call of the
@@ -294,6 +303,9 @@ import torch
 SR = 16000
 # the benchmark's 1000-symbol BPE, the tokenizer of the Conformer (L) checkpoint
 CONFORMER_L_VOCAB = str(Path(__file__).resolve().parent / "asr_bench" / "vocab" / "flagship.json")
+# the benchmark's 1025-symbol BPE, the tokenizer of the FastConformer XXL checkpoint
+FASTCONFORMER_VOCAB = str(Path(__file__).resolve().parent / "asr_bench" / "vocab" /
+                          "fastconformer_xxl.json")
 # (M, C, F): the flagship FFN (d_model 256, d_ff 1024) at the A/B's M,
 # and Conformer-L's (bench config 5: d_model 512, d_ff 2048) at its
 # training step's and its forward's rows (B=4 and B=16 x T'=1601).
@@ -889,22 +901,28 @@ def _one_kernel(fn, name):
     return launches
 
 
-def relpos_phase():
-    """Phase 4b: the relative-position attention kernel (see the module
-    docstring). Returns (launches a Conformer (L) forward, max |kernel -
-    plain|, times)."""
+# (B, T', D) of phase 4b's kernel check: Conformer (L)'s cell's batch of 32 s
+# rows (head size 64) and FastConformer XXL's long-form cell's batch of four
+# 256 s rows (head size 128)
+RELPOS_SHAPES = ((32, 801, 64), (4, 3201, 128))
+
+
+def _relpos_shape(B, T, D, H=8):
+    """The relative-position attention kernel against its plain version at
+    (B, H, T', D), bf16, key lengths in [T' - T'/4, T']: raises past 2e-2;
+    returns the largest difference and the device ms of each beside the
+    bound."""
     from turkish_asr_torch.ops._relpos_attention import relpos_attention_ref
     from turkish_asr_torch.ops.relpos_attention import relpos_attention
     from turkish_asr_torch.scripts import ab_relpos
     from turkish_asr_torch.scripts.ab_attention import device_ms
 
     dev = torch.device("cuda")
-    B, H, T, D = 32, 8, 801, 64
     g = torch.Generator().manual_seed(19)
     q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev, torch.bfloat16) for _ in range(3))
     p = torch.randn(2 * T - 1, H, D, generator=g).to(dev, torch.bfloat16)
     u, w = ((0.125 * torch.randn(H, D, generator=g)).to(dev) for _ in range(2))
-    lengths = torch.from_numpy(np.random.default_rng(19).integers(601, T + 1, B)
+    lengths = torch.from_numpy(np.random.default_rng(19).integers(T - T // 4, T + 1, B)
                                .astype(np.int32)).to(dev)
     args = (q, k, v, p, u, w, lengths)
     with torch.no_grad():
@@ -914,24 +932,41 @@ def relpos_phase():
         err = (out.float() - want.float()).abs().max().item()
         if not err <= 2e-2:
             raise AssertionError(f"relative-position attention kernel off its plain version "
-                                 f"by {err}")
-        times = {"ms": device_ms(lambda: relpos_attention(*args)),
-                 "plain_ms": device_ms(lambda: relpos_attention_ref(*args), calls=3),
-                 "library_ms": device_ms(lambda: ab_relpos.library(*args)),
-                 "bound_ms": ab_relpos.bound_ms(B, T), "bound_by": "operations"}
-        del q, k, v, p, want, out
-    launches, served = _conformer_l_served()
-    print(f"relpos: max |kernel - plain| {err:.3g}; {json.dumps(times)}; "
-          f"{launches} launches a forward on the served path; {json.dumps(served)}", flush=True)
-    return launches, err, times
+                                 f"by {err} at B={B}, T'={T}, D={D}")
+        del out, want
+        row = {"B": B, "H": H, "T": T, "D": D, "max_abs_err": err,
+               "ms": device_ms(lambda: relpos_attention(*args)),
+               "plain_ms": device_ms(lambda: relpos_attention_ref(*args), calls=3),
+               "library_ms": device_ms(lambda: ab_relpos.library(*args)),
+               "bound_ms": ab_relpos.bound_ms(B, T, D), "bound_by": "operations"}
+    del q, k, v, p
+    torch.cuda.empty_cache()
+    return row
+
+
+def relpos_phase():
+    """Phase 4b: the relative-position attention kernel (see the module
+    docstring). Returns its entry of the kernels line."""
+    shapes = [_relpos_shape(*shape) for shape in RELPOS_SHAPES]
+    served = {name: _served(name) for name in SERVED}
+    print(f"relpos: {json.dumps(shapes)}; served {json.dumps(served)}", flush=True)
+    first = shapes[0]
+    return {"name": "flash_attention_relpos_fwd", "route": "cuda",
+            "source": "turkish_asr_torch/csrc/flash_attention_relpos_fwd.cu",
+            "replaces": None, "launches": served["conformer_l"]["relpos_a_forward"],
+            **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")},
+            "shapes": shapes, "served": served,
+            "path": "python -m turkish_asr_torch.scripts.ab_relpos"}
 
 
 def bias_sites(cfg):
     """Bias epilogue launches a forward of ``cfg``'s model: 11 biased sites
     a block (two in each feed-forward, q, k, v and out, pointwise 1, the
-    depthwise convolution, pointwise 2), then the two subsample
-    convolutions, the input projection and the CTC head."""
-    return 11 * cfg.n_blocks + 4
+    depthwise convolution, pointwise 2), then the subsample's convolutions
+    (two by 4; five by 8: the first, and a depthwise and a pointwise twice),
+    the input projection and the CTC head."""
+    return 11 * cfg.n_blocks + {"conv4": 2, "dw_striding8": 5}[cfg.subsample] + 2
 
 
 def bias_act_phase():
@@ -953,59 +988,88 @@ def bias_act_phase():
             "host_us": host, "path": "python -m turkish_asr_torch.scripts.ab_bias_act"}
 
 
-def _conformer_l_served():
-    """A seeded Conformer (L) ``.pt`` (the port's ``init_model``, 17 blocks,
-    d 512, 8 heads, kernel 32, 1000 classes) served by
-    ``ASRInference.transcribe_files`` on four 25-32 s WAVs at batch 2 (two
-    forwards at the 32 s bucket): the block, heads and kernel read from the
-    checkpoint alone; one kernel launch a block and forward; the served
-    logits against the same batch through the plain core. Returns
-    (launches a forward, the comparison's numbers)."""
+# The served models of phase 4b, seeded by the port's init_model: the
+# ModelConfig, the tokenizer, the WAVs' seconds (four, served at batch 2:
+# two forwards), ASRInference's full_context_s, and the bucket in seconds of
+# the comparison's batch of the two longest files.
+SERVED = {
+    "conformer_l": (dict(n_mels=80, d_model=512, n_heads=8, n_blocks=17, n_classes=1000,
+                         conv_kernel_size=32, block="conformer"),
+                    CONFORMER_L_VOCAB, (32, 30, 27.5, 25), None, 32),
+    "fastconformer_xxl": (dict(n_mels=80, d_model=1024, n_heads=8, n_blocks=42,
+                               n_classes=1025, conv_kernel_size=9, block="conformer",
+                               subsample="dw_striding8", subsample_channels=256),
+                          FASTCONFORMER_VOCAB, (250, 240, 200, 195), 256, 256),
+}
+
+
+def _served(name):
+    """The model ``SERVED[name]`` as a seeded ``.pt`` served by
+    ``ASRInference.transcribe_files`` on its four WAVs at batch 2 (two
+    forwards: Conformer (L)'s at the 32 s bucket, FastConformer XXL's whole
+    at the 224 and 256 s buckets): the model read from the checkpoint alone;
+    the counters ``flash_attention_relpos_fwd`` and ``bias_act``, reset just
+    before the call, at one launch a block and ``bias_sites`` a forward; no
+    file chunked, and with ``full_context_s`` the four rows counted in
+    ``full_context_rows``; the served logits against the same batch through
+    the plain core. Returns the comparison's numbers."""
     from turkish_asr_torch.audio.features import log_mel_spectrogram
     from turkish_asr_torch.audio.wavio import write_wav
     from turkish_asr_torch.inference import ASRInference
     from turkish_asr_torch.models import attention
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    from turkish_asr_torch.utils import tracing
 
-    cfg = ModelConfig(n_mels=80, d_model=512, n_heads=8, n_blocks=17, n_classes=1000,
-                      conv_kernel_size=32, block="conformer")
+    kw, vocab, seconds, full_context_s, bucket_s = SERVED[name]
+    cfg = ModelConfig(**kw)
     model = init_model(cfg, torch.Generator().manual_seed(0))
-    waves = [_tone(seconds, 40 + i) for i, seconds in enumerate((32, 30, 27.5, 25))]
+    waves = [_tone(s, 40 + i) for i, s in enumerate(seconds)]
     with tempfile.TemporaryDirectory() as workdir:
-        pt = os.path.join(workdir, "conformer_l.pt")
+        pt = os.path.join(workdir, f"{name}.pt")
         torch.save({"model_state_dict": model.state_dict(),
-                    "config": {"n_heads": 8, "n_mel_channels": 80}}, pt)
+                    "config": {"n_heads": cfg.n_heads, "n_mel_channels": cfg.n_mels}}, pt)
+        del model
         paths = []
         for i, w in enumerate(waves):
-            paths.append(os.path.join(workdir, f"conformer_l_{i}.wav"))
+            paths.append(os.path.join(workdir, f"{name}_{i}.wav"))
             write_wav(paths[-1], w, SR)
-        asr = ASRInference(pt, n_heads=8, device="cuda", data_parallel=False,
-                           tokenizer_path=CONFORMER_L_VOCAB)
-        got = asr.cfg
-        if (got.block, got.n_blocks, got.d_model, got.n_heads, got.conv_kernel_size,
-                got.n_classes) != ("conformer", 17, 512, 8, 32, 1000):
-            raise AssertionError(f"the Conformer (L) .pt loaded as {got}")
+        asr = ASRInference(pt, n_heads=cfg.n_heads, device="cuda", data_parallel=False,
+                           tokenizer_path=vocab, full_context_s=full_context_s)
+        fields = ("block", "n_blocks", "d_model", "n_heads", "conv_kernel_size", "n_classes",
+                  "subsample", "subsample_channels")
+        if any(getattr(asr.cfg, f) != getattr(cfg, f) for f in fields):
+            raise AssertionError(f"the {name} .pt loaded as {asr.cfg}")
         forwards = {}
         asr._forward_batch = _timed(asr._forward_batch, forwards, "ms")
-        asr.transcribe_files(paths, batch_size=2)  # the bucket's first forwards
+        asr.transcribe_files(paths, batch_size=2)  # the buckets' first forwards
         calls = len(forwards["ms"])
+
+        def rows():
+            counters = tracing.counters()
+            return counters.get("full_context_rows", 0), counters.get("chunked_files", 0)
+
+        before = rows()
         _reset_counts("flash_attention_relpos_fwd", "bias_act")
         texts = asr.transcribe_files(paths, batch_size=2)
         launches = _counts()["flash_attention_relpos_fwd"]
         bias_launches = _counts()["bias_act"]
         calls = len(forwards["ms"]) - calls
+        full_rows, chunked = (a - b for a, b in zip(rows(), before))
         if calls != 2 or launches != cfg.n_blocks * calls:
-            raise AssertionError(f"transcribe_files made {calls} forwards (want 2) and "
+            raise AssertionError(f"{name}: transcribe_files made {calls} forwards (want 2) and "
                                  f"launched the kernel {launches} times (want {cfg.n_blocks} "
                                  f"a forward)")
         if bias_launches != bias_sites(cfg) * calls:
-            raise AssertionError(f"transcribe_files launched the bias epilogue {bias_launches} "
-                                 f"times over {calls} forwards (want {bias_sites(cfg)} a "
-                                 f"forward)")
+            raise AssertionError(f"{name}: transcribe_files launched the bias epilogue "
+                                 f"{bias_launches} times over {calls} forwards (want "
+                                 f"{bias_sites(cfg)} a forward)")
+        if chunked != 0 or full_rows != (len(paths) if full_context_s else 0):
+            raise AssertionError(f"{name}: {chunked} files chunked and {full_rows} rows counted "
+                                 f"past 32 s (want 0 and {len(paths) if full_context_s else 0})")
 
         # The served batch's logits against the plain core's (bf16, and fp32
         # for the size of bf16's own error), on the two longest files.
-        S = 32 * SR
+        S = bucket_s * SR
         wav = np.zeros((2, S), np.float32)
         for r, w in enumerate(waves[:2]):
             wav[r, :len(w)] = w
@@ -1015,13 +1079,15 @@ def _conformer_l_served():
             plain, _ = asr._forward_batch(wav, lens)
             with torch.inference_mode():
                 feats, fl = log_mel_spectrogram(torch.from_numpy(wav).cuda(),
-                                                torch.from_numpy(lens).cuda(), n_mels=80)
+                                                torch.from_numpy(lens).cuda(), n_mels=cfg.n_mels)
                 plain_fp32 = asr.model(feats, fl, torch.float32)
             plain_texts = asr.transcribe_files(paths, batch_size=2)
         valid = [slice(0, int(n)) for n in frames]
         kernel, plain, plain_fp32 = (np.concatenate([x[r][valid[r]].float().cpu().numpy()
                                                      for r in range(2)])
                                      for x in (kernel, plain, plain_fp32))
+        del asr
+        torch.cuda.empty_cache()
 
         def rms(a, b):
             return float(np.sqrt(np.mean((a - b) ** 2)))
@@ -1030,7 +1096,9 @@ def _conformer_l_served():
             return float(np.mean(a.argmax(-1) == b.argmax(-1)))
 
         served = {"forwards": calls, "forward_ms": forwards["ms"][-calls:],
+                  "relpos_a_forward": launches // calls,
                   "bias_act_a_forward": bias_launches // calls,
+                  "full_context_rows": full_rows, "chunked_files": chunked,
                   "max_kernel_plain": float(np.abs(kernel - plain).max()),
                   "max_plain_bf16_fp32": float(np.abs(plain - plain_fp32).max()),
                   "rms_kernel_fp32": rms(kernel, plain_fp32),
@@ -1048,9 +1116,8 @@ def _conformer_l_served():
                 and served["rms_kernel_fp32"] <= 1.25 * served["rms_plain_bf16_fp32"]
                 and served["argmax_kernel_fp32"]
                 >= served["argmax_plain_bf16_fp32"] - 0.01):
-            raise AssertionError(f"served Conformer (L) logits disagree with the plain core: "
-                                 f"{served}")
-    return launches // calls, served
+            raise AssertionError(f"served {name} logits disagree with the plain core: {served}")
+    return served
 
 
 def swiglu_phase():
@@ -3073,11 +3140,7 @@ def main():
                                       ("M", "C", "F", "tm", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "chain_ms", "cublas_products_ms")})
         kernels.append(entry)
-    launches, relpos_err, relpos_times = relpos
-    kernels.append({"name": "flash_attention_relpos_fwd", "route": "cuda",
-                    "source": "turkish_asr_torch/csrc/flash_attention_relpos_fwd.cu",
-                    "replaces": None, "launches": launches, "max_abs_err": relpos_err,
-                    **relpos_times, "path": "python -m turkish_asr_torch.scripts.ab_relpos"})
+    kernels.append(relpos)
     kernels.append(bias)
     print(json.dumps({"beam": beam}))
     print(json.dumps(numbers))

@@ -78,7 +78,7 @@ def forward(sd, cfg, feats, frame_lengths):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
-def _forward(w, cfg, feats, frame_lengths):
+def _helpers(w):
     def lin(name, x):
         y = x @ w[name + ".weight"].t()
         return y + w[name + ".bias"] if name + ".bias" in w else y
@@ -89,7 +89,11 @@ def _forward(w, cfg, feats, frame_lengths):
     def ff(name, x):
         return lin(name + ".linear2", F.silu(lin(name + ".linear1", x)))
 
-    H, k = cfg["n_heads"], cfg["conv_kernel_size"]
+    return lin, ln, ff
+
+
+def _forward(w, cfg, feats, frame_lengths):
+    lin = _helpers(w)[0]
     h = feats[:, None]
     for i in (0, 2):
         h = F.relu(F.conv2d(h, w[f"subsample.{i}.weight"], w[f"subsample.{i}.bias"],
@@ -97,7 +101,16 @@ def _forward(w, cfg, feats, frame_lengths):
     B, C, T, Fh = h.shape
     h = lin("input_proj", h.permute(0, 2, 1, 3).reshape(B, T, C * Fh))
     mask = torch.arange(T)[None, :] < (frame_lengths // 4)[:, None]
-    d = h.shape[-1]
+    return lin("fc", blocks(w, cfg, h, mask))
+
+
+def blocks(w, cfg, h, mask):
+    """The blocks of float32 weights ``w`` over (B, T', d) ``h`` with the
+    (B, T') valid-frame ``mask``. ``cfg``: n_heads, n_blocks,
+    conv_kernel_size."""
+    lin, ln, ff = _helpers(w)
+    H, k = cfg["n_heads"], cfg["conv_kernel_size"]
+    B, T, d = h.shape
     dh = d // H
     pos = positions(T, d)
     for i in range(cfg["n_blocks"]):
@@ -124,4 +137,4 @@ def _forward(w, cfg, feats, frame_lengths):
         h = h + x + w[c + ".pointwise_conv2.bias"]
         h = h + 0.5 * ff(pre + ".ff2", ln(pre + ".norm_ff2", h))
         h = ln(pre + ".final_norm", h)
-    return lin("fc", h)
+    return h

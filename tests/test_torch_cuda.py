@@ -771,11 +771,84 @@ def test_relpos_kernel_matches_plain_version(cuda, B, T):
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 65, 401, 1601, 3201])
+def test_relpos_kernel_at_head_size_128_matches_plain_version(cuda, T):
+    """The D = 128 instance (FastConformer XXL's 8 heads of 128: chunked p,
+    q + v from shared memory) on four ragged rows (full, half, empty and a
+    seeded length), against the plain version a row at a time; a head size
+    of neither 64 nor 128 is refused."""
+    from turkish_asr_torch.ops._relpos_attention import relpos_attention_ref
+    from turkish_asr_torch.ops.relpos_attention import relpos_attention
+
+    q, k, v, p, u, w, lengths = _relpos_inputs(4, T, cuda, D=128)
+    before = _launches("flash_attention_relpos_fwd")
+    with torch.no_grad():
+        out = relpos_attention(q, k, v, p, u, w, lengths)
+        want = torch.cat([relpos_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], p, u, w,
+                                               lengths[i:i + 1]) for i in range(4)])
+    torch.cuda.synchronize()
+    assert _launches("flash_attention_relpos_fwd") == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+    q, k, v, p, u, w, lengths = _relpos_inputs(2, 65, cuda, D=96)
+    with torch.no_grad(), pytest.raises(ValueError, match="64 or 128"):
+        relpos_attention(q, k, v, p, u, w, lengths)
+
+
 def _conformer_l(device, n_blocks=17):
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
     cfg = ModelConfig(n_mels=80, d_model=512, n_heads=8, n_blocks=n_blocks, n_classes=1000,
                       conv_kernel_size=32, block="conformer")
     return init_model(cfg, torch.Generator().manual_seed(0)).to(device).eval()
+
+
+def _fastconformer(device, n_blocks=42):
+    from turkish_asr_torch.models.conformer import ModelConfig, init_model
+    cfg = ModelConfig(n_mels=80, d_model=1024, n_heads=8, n_blocks=n_blocks, n_classes=1025,
+                      conv_kernel_size=9, block="conformer", subsample="dw_striding8",
+                      subsample_channels=256)
+    return init_model(cfg, torch.Generator().manual_seed(0)).to(device).eval()
+
+
+@pytest.mark.cuda
+def test_fastconformer_serves_a_long_file_whole_on_the_card(cuda, tmp_path):
+    """FastConformer XXL's widths (two blocks) through ``ASRInference`` with
+    ``full_context_s``: a 100 s file runs whole at its 128 s bucket in bf16
+    through the D = 128 kernel, one launch a block, and its logits stay near
+    the same forward with the plain attention core (bf16 through two blocks
+    on both sides)."""
+    from turkish_asr_torch.audio.features import log_mel_spectrogram
+    from turkish_asr_torch.inference import ASRInference
+    model = _fastconformer("cpu", n_blocks=2)
+    path = tmp_path / "fastconformer.pt"
+    torch.save({"model_state_dict": model.state_dict(),
+                "config": {"n_heads": 8, "n_mel_channels": 80}}, path)
+    vocab = str(Path(__file__).resolve().parents[1] / "asr_bench" / "vocab" /
+                "fastconformer_xxl.json")
+    asr = ASRInference(str(path), n_heads=8, device="cuda", data_parallel=False,
+                       tokenizer_path=vocab, full_context_s=256)
+    assert (asr.cfg.subsample, asr.cfg.n_heads) == ("dw_striding8", 8)
+    wav = (np.random.default_rng(5).standard_normal(100 * 16000) * 0.1).astype(np.float32)
+    lengths = np.asarray([len(wav), 77 * 16000], np.int32)
+    batch = np.zeros((2, 128 * 16000), np.float32)
+    batch[0], batch[1, :lengths[1]] = np.pad(wav, (0, 28 * 16000)), wav[:lengths[1]]
+    before = (_launches("flash_attention_relpos_fwd"),
+              tracing.counters()["full_context_rows"])
+    logits, frames = asr._forward_batch(batch, lengths)
+    torch.cuda.synchronize()
+    assert (_launches("flash_attention_relpos_fwd") - before[0],
+            tracing.counters()["full_context_rows"] - before[1]) == (2, 2)
+    assert frames.tolist() == [1251, 963] and logits.shape == (2, 1601, 1025)
+    with torch.inference_mode():
+        feats, fl = log_mel_spectrogram(torch.from_numpy(batch).to(cuda),
+                                        torch.from_numpy(lengths).to(cuda))
+        plain = asr.model(feats, fl, torch.bfloat16, attn_kernel=False)
+    assert torch.isfinite(logits).all()
+    # the kernel-off core is the plain version (the Conformer (L) test's bound)
+    err = (logits[0, :1251] - plain[0, :1251]).abs().max().item()
+    assert err < 0.25 * plain[0, :1251].abs().max().item(), err
 
 
 @pytest.mark.cuda
@@ -1036,17 +1109,22 @@ def _bias_act_forward(model, B, seconds, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("config,B,seconds,launches", [("conformer_l", 32, 32, 191),
                                                        ("flagship", 16, 24, 92),
-                                                       ("flagship", 16, 32, 92)])
+                                                       ("flagship", 16, 32, 92),
+                                                       ("fastconformer", 4, 64, 51)])
 def test_forward_through_the_bias_epilogue_is_bit_for_bit(cuda, config, B, seconds, launches):
     """One forward of each cell's model, with every biased site through the
     kernel, gives the logits of the same forward through the plain chain bit
     for bit, and launches the kernel at every site: 17 x 11 + 4 in Conformer
-    (L), 8 x 11 + 4 in the flagship."""
+    (L), 8 x 11 + 4 in the flagship, 4 x 11 + 7 in four FastConformer XXL
+    blocks behind its 8x subsample (a convolution, two depthwise and two
+    pointwise)."""
     from turkish_asr_torch.models.conformer import ModelConfig, init_model
     from turkish_asr_torch.ops import bias_act as ba
 
     if config == "conformer_l":
         model = _conformer_l(cuda)
+    elif config == "fastconformer":
+        model = _fastconformer(cuda, n_blocks=4)
     else:
         cfg = ModelConfig(n_mels=80, d_model=256, n_heads=4, n_blocks=8, n_classes=1000)
         model = init_model(cfg, torch.Generator().manual_seed(0)).to(cuda).eval()

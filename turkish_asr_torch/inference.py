@@ -12,7 +12,14 @@ and in a batch.
 CLI: ``python -m turkish_asr_torch.inference --audio FILE_OR_DIR --model
 model.pt|model.ckpt [--beam_search --beam_width 16 --lm lm.arpa --lm_fusion
 auto|device|hash|host --lm_weight 0.3 --word_bonus 0.5] [--evaluate]
-[--timestamps] [--device cuda|cpu]``.
+[--timestamps] [--device cuda|cpu] [--full_context_s 256]``.
+
+Files up to the largest bucket (32 s) run whole and batched; a longer file
+runs in overlapping 28 s chunks, one file at a time. With
+``full_context_s`` (seconds) files up to that length run whole too, in
+buckets of 32 s steps past 32 s (64, 96, ... up to ``full_context_s``),
+batched through the same staging ring and forward as short files, as
+FastConformer models are served; only longer files are chunked.
 
 The model is a reference-format ``.pt`` or the JAX package's ``.ckpt``
 (``utils/weights.load_model``; a ``.ckpt`` is read without jax, flax or
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 
 from turkish_asr_torch.audio.features import log_mel_spectrogram
-from turkish_asr_torch.audio.wavio import load_audio
+from turkish_asr_torch.audio.wavio import TARGET_SAMPLE_RATE, load_audio
 from turkish_asr_torch.data.buckets import DEFAULT_WAVEFORM_BUCKETS, bucket_table
 from turkish_asr_torch.data.tokenizer import load_tokenizer
 from turkish_asr_torch.decode.beam import CTCBeamDecoder
@@ -48,6 +55,24 @@ from turkish_asr_torch.utils.errors import TimestampsUnsupportedError
 from turkish_asr_torch.utils.weights import load_model
 
 LM_FUSIONS = ("auto", "device", "hash", "host")
+tracing.count("full_context_rows", 0)
+tracing.count("chunked_files", 0)
+HOP = 160  # samples between log-mel frames (audio/features.py)
+LONG_BUCKET_S = 32  # the step of the whole-file buckets past the largest default bucket
+
+
+def whole_file_buckets(full_context_s=None):
+    """The waveform buckets files run whole in: ``DEFAULT_WAVEFORM_BUCKETS``
+    (up to 32 s), then with ``full_context_s`` 32 s steps past them up to the
+    first that holds ``full_context_s`` (64, 96, ..., 256 for 256)."""
+    if full_context_s is None:
+        return DEFAULT_WAVEFORM_BUCKETS
+    if full_context_s <= 0:
+        raise ValueError(f"full_context_s must be positive, got {full_context_s}")
+    last = DEFAULT_WAVEFORM_BUCKETS[-1]
+    step = LONG_BUCKET_S * TARGET_SAMPLE_RATE
+    n = max(0, -(-(int(full_context_s * TARGET_SAMPLE_RATE) - last) // step))
+    return DEFAULT_WAVEFORM_BUCKETS + tuple(last + step * (k + 1) for k in range(n))
 
 
 def _check_vocab_match(n_classes, tokenizer, model_path):
@@ -77,12 +102,19 @@ class ASRInference:
     def __init__(self, model_path, n_heads=4, use_beam_search=False, beam_width=10,
                  lm_path=None, lm_fusion="auto", lm_weight=0.3, word_bonus=0.5,
                  compute_dtype=torch.bfloat16, tokenizer_path=None, trust_checkpoint=False,
-                 device="cuda", data_parallel=True, devices=None):
+                 device="cuda", data_parallel=True, devices=None, full_context_s=None):
         """``data_parallel``: batched forwards split their rows over a
         replica of the model on each of ``devices`` (default: every
         visible CUDA device when ``device`` is a CUDA device; the first
-        is ``device``'s). Off, or with one device, one model runs all rows."""
+        is ``device``'s). Off, or with one device, one model runs all rows.
+        ``full_context_s``: files up to this many seconds run whole (module
+        docstring); None chunks every file past 32 s."""
         self.device = resolve_device(device)
+        self.buckets = whole_file_buckets(full_context_s)
+        # the longest file run whole; longer ones are chunked
+        self.whole_max = DEFAULT_WAVEFORM_BUCKETS[-1]
+        if full_context_s is not None:
+            self.whole_max = max(self.whole_max, int(full_context_s * TARGET_SAMPLE_RATE))
         self.compute_dtype = compute_dtype
         self.tokenizer = load_tokenizer(tokenizer_path)
         self.cfg, self.model = load_model(model_path, self.device, n_heads=n_heads,
@@ -111,6 +143,7 @@ class ASRInference:
             print("WARNING: --lm/ASR_LM_PATH is set but beam search is off — the LM is "
                   "IGNORED on the greedy path (pass --beam_search / USE_BEAM_SEARCH=true).")
         self.greedy = GreedyDecoder(self.tokenizer)
+        self.frame_s = self.model.subsample.factor * HOP / TARGET_SAMPLE_RATE
         self._rings = []  # free _StagingRings
         print(f"ASR ready on {self.device}")
 
@@ -175,6 +208,8 @@ class ASRInference:
         B, S = waveforms.shape
         tracing.count("forward_samples_valid", int(lengths.sum()))
         tracing.count("forward_samples_padded", B * S)
+        if S > DEFAULT_WAVEFORM_BUCKETS[-1]:
+            tracing.count("full_context_rows", B)
         pinned = torch.is_tensor(waveforms) and waveforms.is_pinned()
         with tracing.span("forward", B=B, S=S):
             outs = []
@@ -189,7 +224,7 @@ class ASRInference:
                     lens = torch.as_tensor(lengths[part]).to(dev, non_blocking=pinned)
                 feats, frame_lengths = log_mel_spectrogram(wav, lens, n_mels=self.cfg.n_mels)
                 outs.append((model(feats, frame_lengths, self.compute_dtype),
-                             frame_lengths // 4))
+                             model.subsample.frames(frame_lengths)))
             if pinned:
                 tracing.count("staged_pinned")
             return (torch.cat([o[0].to(self.device) for o in outs]),
@@ -211,7 +246,7 @@ class ASRInference:
 
     def _forward_padded(self, waveform):
         n = waveform.shape[0]
-        S = bucket_table(n, DEFAULT_WAVEFORM_BUCKETS)
+        S = bucket_table(n, self.buckets)
         padded = np.zeros((1, S), dtype=np.float32)
         padded[0, :min(n, S)] = waveform[:S]
         logits, out_len = self._forward_batch(padded, np.asarray([min(n, S)], np.int32))
@@ -219,20 +254,22 @@ class ASRInference:
 
     def _logits(self, audio_path, chunk_seconds=28.0, overlap_seconds=2.0):
         """Logits of a file; audio longer than the largest bucket runs in
-        overlapping chunks whose trimmed logits are concatenated."""
+        overlapping chunks whose trimmed logits are concatenated (the
+        counter ``chunked_files``)."""
         with tracing.span("load") as span:
             waveform, sr = load_audio(audio_path)
             span.set(samples=waveform.shape[0])
         n = waveform.shape[0]
-        if n <= DEFAULT_WAVEFORM_BUCKETS[-1]:
+        if n <= self.whole_max:
             logits, out_len = self._forward_padded(waveform)
             return logits[:out_len], out_len
 
+        tracing.count("chunked_files")
         chunk = int(chunk_seconds * sr)
         overlap = int(overlap_seconds * sr)
         step = chunk - overlap
-        # post-subsample frame rate: hop 160 then // 4 -> 640 samples a frame
-        margin_frames = overlap // (160 * 4) // 2
+        # post-subsample frame rate: hop 160 then the subsample's factor
+        margin_frames = overlap // (HOP * self.model.subsample.factor) // 2
         pieces = []
         start = 0
         while start < n:
@@ -252,7 +289,8 @@ class ASRInference:
     def transcribe(self, audio_path, timestamps=False):
         """One file -> text, or with ``timestamps=True`` (greedy only)
         ``{"text", "segments": [{"word", "start", "end"}]}`` from the CTC
-        emission frames (one output frame = 40 ms at 16 kHz)."""
+        emission frames (one output frame = 10 ms times the subsample's
+        factor: 40 ms by 4, 80 ms by 8)."""
         if timestamps and self.use_beam_search:
             # refused before the forward: the check must not cost a transcription
             raise TimestampsUnsupportedError(
@@ -266,9 +304,10 @@ class ASRInference:
             return self.tokenizer.ctc_decode(pred_ids.tolist())
         return self._with_segments(pred_ids)
 
-    def _with_segments(self, pred_ids, frame_sec=0.04):
-        """CTC collapse keeping each kept token's emission frame, then words
-        split at the tokens' own spaces."""
+    def _with_segments(self, pred_ids):
+        """CTC collapse keeping each kept token's emission frame
+        (``frame_s`` apart), then words split at the tokens' own spaces."""
+        frame_sec = self.frame_s
         blank = self.tokenizer.pad_token_id
         prev = -1
         kept, frames = [], []
@@ -318,9 +357,10 @@ class ASRInference:
         loaded first. While one batch's forward runs on the card the host
         loads the next batch's files and pads them into the other arena of a
         ``_StagingRing``, then decodes the batch on the card and dispatches
-        the next. Files longer than the largest bucket run alone, chunked,
-        after the batches. A file that fails to load or decode gives "";
-        with ``return_errors=True`` returns (texts, error strings or None)."""
+        the next. Files longer than 32 s (or ``full_context_s``) run alone,
+        chunked, after the batches. A file that fails to load or decode
+        gives ""; with ``return_errors=True`` returns (texts, error strings
+        or None)."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be at least 1, got {batch_size}")
         with tracing.span("transcribe_files", files=len(audio_paths), batch_size=batch_size), \
@@ -365,10 +405,10 @@ class ASRInference:
                     continue
                 if pending is not None:
                     tracing.count("load_behind_forward")
-                if w.shape[0] > DEFAULT_WAVEFORM_BUCKETS[-1]:
+                if w.shape[0] > self.whole_max:
                     longer.append(i)
                     continue
-                S = bucket_table(w.shape[0], DEFAULT_WAVEFORM_BUCKETS)
+                S = bucket_table(w.shape[0], self.buckets)
                 group = by_bucket.setdefault(S, [])
                 group.append((i, w))
                 if len(group) == batch_size:
@@ -486,6 +526,10 @@ def main(argv=None):
                              "(greedy decode only)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Device to run on (cuda, or cpu); no fallback")
+    parser.add_argument("--full_context_s", type=float, default=None,
+                        help="Run files up to this many seconds whole, in 32 s buckets past "
+                             "32 s (FastConformer's long-form use); longer files, and every "
+                             "file past 32 s when unset, run in 28 s chunks")
     args = parser.parse_args(argv)
 
     asr = ASRInference(
@@ -500,6 +544,7 @@ def main(argv=None):
         tokenizer_path=args.tokenizer_path,
         trust_checkpoint=args.trust_checkpoint,
         device=args.device,
+        full_context_s=args.full_context_s,
     )
 
     audio_path = Path(args.audio)

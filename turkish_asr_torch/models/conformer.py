@@ -18,8 +18,9 @@ the arithmetic is written out so its cast points follow the JAX package:
 - dense layers and convolutions: the product in the compute dtype, the
   bias added in fp32, then cast back, with the elementwise tail after it
   (``ops.bias_act``: one hand-written kernel on the card in bf16).
-- the padding mask is ``arange(T') < input_lengths // 4``; the subsample
-  output flattens channel-major, (C, F).
+- the padding mask is ``arange(T') <`` the subsample's ``frames`` of the
+  input lengths (``input_lengths // 4`` for the reference's subsample); the
+  subsample output flattens channel-major, (C, F).
 - training dropout (rate ``cfg.dropout``) after the SwiGLU gate product
   and after its output projection, and on the attention weights inside the
   attention kernel. Every mask is a pure function of (step seed, block,
@@ -64,11 +65,19 @@ k = 32. With padded frames zeroed before it, LayerNorm per frame, BatchNorm
 on running statistics and positions that depend only on i - j, a file's
 logits do not depend on its bucket or its batch. The subsample takes ReLU.
 The block serves only (bf16 only on CUDA): it refuses a mesh and training.
+
+``ModelConfig.subsample`` names a subsample in ``SUBSAMPLES``: ``"conv4"``
+(the default, the reference's two stride-2 convolutions) or
+``"dw_striding8"``, NeMo's depthwise-separable subsample by 8 of
+FastConformer (Rekesh et al. 2023, arXiv:2305.05084; Parakeet-CTC 1.1B is 42
+``"conformer"`` blocks of d 1024 behind it). Each subsample owns its valid
+frames' arithmetic (``frames``), which the mask and ``ASRInference`` take.
 """
 
 import functools
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +90,7 @@ from turkish_asr_torch.models.attention import (
 from turkish_asr_torch.ops.bias_act import bias_act
 from turkish_asr_torch.parallel.collectives import all_gather, all_reduce, copy_to, halo
 from turkish_asr_torch.parallel.mesh import axis_group, seq_bounds, shard_seed
+from turkish_asr_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -100,10 +110,18 @@ class ModelConfig:
     # a key of BLOCKS: "flagship" (the reference model's block) or "conformer"
     # (Conformer (L)'s: LayerNorm, Swish, relative-position attention; serving only).
     block: str = "flagship"
+    # a key of SUBSAMPLES: "conv4" (two stride-2 convolutions) or "dw_striding8"
+    # (NeMo's depthwise-separable subsample by 8, FastConformer's)
+    subsample: str = "conv4"
+    # the subsample's convolution channels; None: d_model
+    subsample_channels: Optional[int] = None
 
     def __post_init__(self):
         if self.block not in BLOCKS:
             raise ValueError(f"block must be one of {tuple(BLOCKS)}, got {self.block!r}")
+        if self.subsample not in SUBSAMPLES:
+            raise ValueError(f"subsample must be one of {tuple(SUBSAMPLES)}, got "
+                             f"{self.subsample!r}")
 
 
 def groupnorm_groups(num_channels, preferred=32):
@@ -463,6 +481,103 @@ BLOCKS = {"flagship": ConformerBlock, "conformer": RelPosConformerBlock}
 FUSED_ACTS = {nn.ReLU: "relu", nn.SiLU: "silu"}
 
 
+def _biased_act(h, bias, act, cd):
+    """A convolution's (B, C, ...) output with its bias and ``act`` (through
+    ``bias_act``'s tail where it has one)."""
+    tail = FUSED_ACTS.get(type(act))
+    h = bias_act(h, bias, cd, tail or "none", dim=1)
+    return act(h) if tail is None else h
+
+
+class Conv4Subsample(nn.Sequential):
+    """Two stride-2 3x3 Conv2d of ``channels`` (padding 1), each with the
+    block's ``subsample_act``: time and mel bins by 4. Its valid frames are
+    ``lengths // 4``, the reference model's (not the convolutions' own
+    ceil(ceil(L/2)/2))."""
+
+    factor = 4
+
+    def __init__(self, channels, act):
+        super().__init__(nn.Conv2d(1, channels, 3, stride=2, padding=1), act(),
+                         nn.Conv2d(channels, channels, 3, stride=2, padding=1), act())
+
+    @staticmethod
+    def out_bins(n_mels):
+        return n_mels // 4
+
+    @staticmethod
+    def frames(lengths):
+        """Valid output frames of (B,) input frame counts, in their dtype."""
+        return lengths // 4
+
+    def forward(self, x, cd, lengths=None):
+        """(B, T, F) features -> (B, C, T', F') in ``cd`` (``lengths`` unused)."""
+        h = x[:, None].to(cd)
+        conv1, act1, conv2, act2 = self
+        for conv, act in ((conv1, act1), (conv2, act2)):
+            h = _biased_act(F.conv2d(h, conv.weight.to(cd), stride=2, padding=1), conv.bias,
+                            act, cd)
+        return h
+
+
+class DwStriding8Subsample(nn.Sequential):
+    """NeMo's ``dw_striding`` subsample by 8 (FastConformer, Rekesh et al.
+    2023): Conv2d(1, C, 3x3, stride 2) -> act, then twice depthwise Conv2d(C,
+    C, 3x3, stride 2, groups C) -> pointwise Conv2d(C, C, 1x1) -> act, all
+    padded 1, so time and mel bins each go L -> (L - 1) // 2 + 1 three times
+    (ceil(L/2)), which is also its valid frames' arithmetic. Parameters
+    ``subsample.0`` (conv), ``.2``/``.3`` and ``.5``/``.6`` (depthwise and
+    pointwise), as NeMo's ``conv`` sequence numbers them.
+
+    With the rows' input frame counts, the frames past each stage's valid
+    ones are zeroed before the next stage reads them, as the convolutions'
+    own zero padding is for a file alone: a stride-2 kernel of 3 reads one
+    frame past the valid ones, so without it the last valid frame, and
+    through attention every frame, would depend on the bucket."""
+
+    factor = 8
+
+    def __init__(self, channels, act):
+        def dw():
+            return nn.Conv2d(channels, channels, 3, stride=2, padding=1, groups=channels)
+
+        super().__init__(nn.Conv2d(1, channels, 3, stride=2, padding=1), act(),
+                         dw(), nn.Conv2d(channels, channels, 1), act(),
+                         dw(), nn.Conv2d(channels, channels, 1), act())
+
+    @staticmethod
+    def out_bins(n_mels):
+        return DwStriding8Subsample.frames(n_mels)
+
+    @staticmethod
+    def frames(lengths):
+        """Valid output frames of input frame counts (a (B,) tensor, in its
+        dtype, or an int): each stride-2 convolution's (L - 1) // 2 + 1."""
+        for _ in range(3):
+            lengths = (lengths - 1) // 2 + 1
+        return lengths
+
+    def forward(self, x, cd, lengths=None):
+        """(B, T, F) features and (B,) frame counts -> (B, C, T', F') in ``cd``."""
+        conv, act = self[0], self[1]
+        h = F.conv2d(x[:, None].to(cd), conv.weight.to(cd), stride=2, padding=1)
+        h = _biased_act(h, conv.bias, act, cd)
+        for i in (2, 5):
+            if lengths is not None:
+                lengths = (lengths - 1) // 2 + 1
+                valid = torch.arange(h.shape[2], device=h.device)[None, :] < lengths[:, None]
+                h = torch.where(valid[:, None, :, None], h, 0)
+            dw, pw, act = self[i], self[i + 1], self[i + 2]
+            h = F.conv2d(h, dw.weight.to(cd), stride=2, padding=1, groups=dw.groups)
+            h = bias_act(h, dw.bias, cd, dim=1)
+            h = _biased_act(F.conv2d(h, pw.weight.to(cd)), pw.bias, act, cd)
+        return h
+
+
+# The subsamples ``ModelConfig.subsample`` names.
+SUBSAMPLES = {"conv4": Conv4Subsample, "dw_striding8": DwStriding8Subsample}
+
+
 def dots_saveable(ctx, op, *args, **kwargs):
     """The ``--remat_policy dots`` checkpoint policy, JAX's
     ``dots_with_no_batch_dims_saveable`` (turkish_asr_tpu/train/trainer.py:63-77):
@@ -477,9 +592,10 @@ def dots_saveable(ctx, op, *args, **kwargs):
 
 
 class ConformerCTC(nn.Module):
-    """Two stride-2 Conv2d subsample, each with the block's
-    ``subsample_act``, input projection, the blocks ``BLOCKS[cfg.block]``
-    names, linear CTC head. ``forward`` returns fp32 logits."""
+    """The subsample ``SUBSAMPLES[cfg.subsample]`` names (its activations the
+    block's ``subsample_act``), input projection, the blocks
+    ``BLOCKS[cfg.block]`` names, linear CTC head. ``forward`` returns fp32
+    logits."""
 
     mesh = None
 
@@ -488,10 +604,10 @@ class ConformerCTC(nn.Module):
         self.cfg = cfg
         d = cfg.d_model
         self.block_type = block = BLOCKS[cfg.block]
-        self.subsample = nn.Sequential(
-            nn.Conv2d(1, d, 3, stride=2, padding=1), block.subsample_act(),
-            nn.Conv2d(d, d, 3, stride=2, padding=1), block.subsample_act())
-        self.input_proj = nn.Linear(d * (cfg.n_mels // 4), d)
+        kind = SUBSAMPLES[cfg.subsample]
+        channels = cfg.subsample_channels or d
+        self.subsample = kind(channels, block.subsample_act)
+        self.input_proj = nn.Linear(channels * kind.out_bins(cfg.n_mels), d)
         self.blocks = nn.ModuleList(block(cfg) for _ in range(cfg.n_blocks))
         self.fc = nn.Linear(d, cfg.n_classes)
 
@@ -514,28 +630,23 @@ class ConformerCTC(nn.Module):
         ``attn_kernel=None``): the bench's kernel-off runs pass it; the
         default is the kernel."""
         cd = compute_dtype
-        h = x[:, None].to(cd)  # (B, 1, T, F)
-        conv1, act1, conv2, act2 = self.subsample
-        for conv, act in ((conv1, act1), (conv2, act2)):
-            h = F.conv2d(h, conv.weight.to(cd), stride=2, padding=1)
-            tail = FUSED_ACTS.get(type(act))
-            h = bias_act(h, conv.bias, cd, tail or "none", dim=1)
-            if tail is None:
-                h = act(h)
-        B, C, Th, Fh = h.shape
-        h = h.permute(0, 2, 1, 3).reshape(B, Th, C * Fh)  # channel-major (C, F)
-        mask = sub = None
-        if input_lengths is not None:
-            sub = input_lengths.to(torch.int64) // 4
-            mask = torch.arange(Th, device=h.device)[None, :] < sub[:, None]
-        seq = axis_group(self.mesh, "seq")
-        if seq is not None:  # this rank's frames; the blocks get the full mask
-            bounds = seq_bounds(Th, seq.size)
-            h = h[:, slice(*bounds[seq.index])]
-            if mask is None:
-                mask = torch.ones((B, Th), dtype=torch.bool, device=h.device)
-        h = dense(self.input_proj, h, cd)
-        frames = Frames(mask, sub, B, Th, h.device)
+        sub = self.subsample
+        with tracing.span("subsample", B=x.shape[0], T=x.shape[1], factor=sub.factor):
+            h = sub(x, cd, input_lengths)  # (B, T, F) -> (B, C, T', F')
+            B, C, Th, Fh = h.shape
+            h = h.permute(0, 2, 1, 3).reshape(B, Th, C * Fh)  # channel-major (C, F)
+            mask = counts = None
+            if input_lengths is not None:
+                counts = sub.frames(input_lengths.to(torch.int64))
+                mask = torch.arange(Th, device=h.device)[None, :] < counts[:, None]
+            seq = axis_group(self.mesh, "seq")
+            if seq is not None:  # this rank's frames; the blocks get the full mask
+                bounds = seq_bounds(Th, seq.size)
+                h = h[:, slice(*bounds[seq.index])]
+                if mask is None:
+                    mask = torch.ones((B, Th), dtype=torch.bool, device=h.device)
+            h = dense(self.input_proj, h, cd)
+        frames = Frames(mask, counts, B, Th, h.device)
         if not train:
             for block in self.blocks:
                 h = block(h, frames, cd, attn_kernel=attn_kernel)

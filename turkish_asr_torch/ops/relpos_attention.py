@@ -6,7 +6,8 @@ The forward is the PyTorch op ``turkish_asr_torch::flash_attention_relpos_fwd``
 CPU implementation is the plain version (``_relpos_attention.py``), its CUDA
 implementation the hand-written Hopper kernel
 (``csrc/flash_attention_relpos_fwd.cu``), which takes bf16 q, k, v and p
-with a head size of 64 and raises for anything else. Forward only: with
+with a head size of 64 or 128 (one template instance each) and raises for
+anything else. Forward only: with
 gradients the CPU takes the plain version through autograd, and a CUDA
 tensor is refused, since no backward kernel exists.
 
@@ -25,7 +26,7 @@ from turkish_asr_torch.utils import tracing
 
 KERNEL_SOURCES = ("flash_attention_relpos_fwd.cu",)
 BLOCK_ROWS = 128  # query rows a block: two consumer warpgroups of 64 (the kernel's)
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)
 tracing.count("flash_attention_relpos_fwd", 0)
 _entry = []
 
@@ -59,8 +60,8 @@ def _check(q, k, v, p, pos_bias_u, pos_bias_v, lengths):
 
 
 def _check_kernel(q, k, v, p):
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the kernel takes a head size of {HEAD_DIM}, got {q.shape[-1]}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes a head size of 64 or 128, got {q.shape[-1]}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, p)):
         raise ValueError(f"the kernel takes bf16 q, k, v and p, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}/{p.dtype}")

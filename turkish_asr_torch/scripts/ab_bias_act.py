@@ -12,9 +12,12 @@ Usage:
 
 One JSON line for each site of ``SITES``: the shapes of the
 ``conformer_l.transcribe_24_32s`` cell's forward (B=32 rows of 32 s, T'=801,
-d 512) and of the ``flagship.transcribe_16_32s`` cell's (B=16 rows of 24
-and 32 s, d 256, SiLU subsample, an odd depthwise kernel); seeded inputs, a
-ragged mask with rows of 3/4 to all of their frames valid.
+d 512), of the ``flagship.transcribe_16_32s`` cell's (B=16 rows of 24
+and 32 s, d 256, SiLU subsample, an odd depthwise kernel) and of the
+``fastconformer_xxl.longform_180_240s`` cell's (B=4 rows of 256 s, T'=3201,
+d 1024: the 8x subsample's ReLU planes and its depthwise convolutions'
+bias alone, rows of d 1024, 4096 and 1025, the depthwise kernel of 9);
+seeded inputs, a ragged mask with rows of 3/4 to all of their frames valid.
 Each line holds the largest distance of the kernel from the plain chain in
 bf16 ulps, device ms a call of each (``ab_attention.device_ms``: 20 calls
 queued behind a spin kernel), the bound (bytes read and written once, over
@@ -44,6 +47,8 @@ PEAK_BYTES = 3.35e12
 B, T, D = 32, 801, 512
 M = B * T
 FB, FD = 16, 256  # the flagship cell's batch and width
+XB, XD, XT, XC = 4, 1024, 3201, 256  # FastConformer XXL's: batch, width, T', subsample channels
+XM = XB * XT
 # site: (tail, x's shape, dim, the depthwise kernel of bn_silu's x: a
 # depthwise convolution's output, of (B, D, T + 1) with its first frame
 # skipped for the even kernel)
@@ -60,7 +65,17 @@ SITES = {"subsample1_relu": ("relu", (B, D, 1601, 40), 1, None),
          "flagship_proj_none": ("none", (FB * T, FD), -1, None),
          "flagship_ff_none": ("none", (FB * T, 4 * FD), -1, None),
          "flagship_pw1_glu_mask": ("glu_mask", (FB * T, 2 * FD), -1, None),
-         "flagship_dw_bn_silu": ("bn_silu", (FB, FD, T), 1, 31)}
+         "flagship_dw_bn_silu": ("bn_silu", (FB, FD, T), 1, 31),
+         "xxl_subsample1_relu": ("relu", (XB, XC, 4 * XT - 3, 40), 1, None),
+         "xxl_subsample2_dw_none": ("none", (XB, XC, 2 * XT - 1, 20), 1, None),
+         "xxl_subsample2_pw_relu": ("relu", (XB, XC, 2 * XT - 1, 20), 1, None),
+         "xxl_subsample3_dw_none": ("none", (XB, XC, XT, 10), 1, None),
+         "xxl_subsample3_pw_relu": ("relu", (XB, XC, XT, 10), 1, None),
+         "xxl_proj_none": ("none", (XM, XD), -1, None),
+         "xxl_ff_linear1_silu": ("silu", (XM, 4 * XD), -1, None),
+         "xxl_fc_none": ("none", (XM, 1025), -1, None),
+         "xxl_pw1_glu_mask": ("glu_mask", (XM, 2 * XD), -1, None),
+         "xxl_dw_bn_silu": ("bn_silu", (XB, XD, XT), 1, 9)}
 
 
 def inputs(tail, shape, dim, device, seed=0, kernel=32):

@@ -12,10 +12,12 @@ with that mask (the port never calls it; it is the yardstick).
 
 Usage:
 
-    python -m turkish_asr_torch.scripts.ab_relpos [B] [T ...]
+    python -m turkish_asr_torch.scripts.ab_relpos [--d D] [B] [T ...]
 
-(defaults 32, 801 1601: the transcription cell's batch of 32 s rows and a
-64 s row). H = 8, D = 64, bf16, key lengths seeded in [3T/4, T]. For each T
+(defaults D = 64, 32, 801 1601: Conformer (L)'s cell's batch of 32 s rows
+and a 64 s row; ``--d 128 4 1601 2401 3201`` is FastConformer XXL's head
+size at its long-form cell's batch of four 128-256 s rows). H = 8, bf16,
+key lengths seeded in [3T/4, T]. For each T
 it prints one JSON object: device ms a call of each (``ab_attention.device_ms``:
 20 calls queued behind a spin kernel), the kernel's bound (6*B*H*T*T*D
 flops at 989 TFLOP/s against its bytes at 3.35 TB/s, as
@@ -36,10 +38,10 @@ from turkish_asr_torch.ops._relpos_attention import relpos_attention_ref
 from turkish_asr_torch.ops.relpos_attention import relpos_attention
 from turkish_asr_torch.scripts.ab_attention import device_ms
 
-H, D = 8, 64
+H = 8
 
 
-def bound_ms(B, T):
+def bound_ms(B, T, D=64):
     flops = 6 * B * H * T * T * D
     nbytes = 4 * B * T * H * D * 2 + H * (2 * T - 1) * D * 2 + 2 * H * D * 4
     return 1e3 * max(flops / 989e12, nbytes / 3.35e12)
@@ -47,7 +49,7 @@ def bound_ms(B, T):
 
 def library(q, k, v, p, u, w, lengths):
     """SDPA with the rel-shifted position term as a float mask: (B, T, H, D) bf16."""
-    B, T = q.shape[:2]
+    B, T, H, D = q.shape
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     bd = torch.matmul(qh + w.to(q.dtype)[None, :, None], p.permute(1, 2, 0))  # (B, H, T, 2T-1)
     bd = torch.cat([bd.new_zeros((B, H, T, 1)), bd], dim=-1).view(B, H, 2 * T, T)
@@ -70,7 +72,11 @@ def peak_bytes(fn):
 
 
 def main(argv=None):
-    args = [int(a) for a in (sys.argv[1:] if argv is None else argv)]
+    args = list(sys.argv[1:] if argv is None else argv)
+    D = 64
+    if args[:1] == ["--d"]:
+        D, args = int(args[1]), args[2:]
+    args = [int(a) for a in args]
     B = args[0] if args else 32
     lengths_t = args[1:] or [801, 1601]
     if not torch.cuda.is_available():
@@ -93,7 +99,7 @@ def main(argv=None):
                    "kernel_ms": device_ms(lambda: relpos_attention(*args_)),
                    "plain_ms": device_ms(lambda: relpos_attention_ref(*args_), calls=3),
                    "library_ms": device_ms(lambda: library(*args_)),
-                   "bound_ms": bound_ms(B, T),
+                   "bound_ms": bound_ms(B, T, D),
                    "kernel_err": (relpos_attention(*args_).float() - want.float()).abs().max().item(),
                    "library_err": (library(*args_).float() - want.float()).abs().max().item(),
                    "kernel_peak_bytes": peak_bytes(lambda: relpos_attention(*args_)),

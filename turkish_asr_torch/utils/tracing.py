@@ -6,9 +6,12 @@ lock. The kernel wrappers count their launches here (``flash_attention_fwd``,
 ``swiglu_fwd``, ``flash_attention_relpos_fwd``, ``bias_act``), ``ASRInference._forward_batch``
 the samples it is given (``forward_samples_valid``), the padded array's
 (``forward_samples_padded``) and the batches it copied from a page-locked
-arena (``staged_pinned``), ``ASRInference.transcribe_files`` the files it
-decoded while a forward of the same call was on the device and not yet
-decoded (``load_behind_forward``), and ``audio/wavio.py::read_wav`` the
+arena (``staged_pinned``) and the rows of its forwards at buckets past 32 s
+(``full_context_rows``, padding rows of a partial batch included; only with
+``full_context_s``), ``ASRInference.transcribe_files`` the files it decoded
+while a forward of the same call was on the device and not yet decoded
+(``load_behind_forward``), ``ASRInference._logits`` the files it ran in
+overlapping chunks (``chunked_files``), and ``audio/wavio.py::read_wav`` the
 files it decoded by route (``wav_decode_native``, ``wav_decode_numpy``).
 
 Spans (``span``) exist to be laid against a device trace, so they record
@@ -29,7 +32,8 @@ batch_size), ``load`` (one file decoded: samples), ``stage`` (one batch
 padded into a staging arena: S, rows), ``batch`` (one batch, from its
 forward's dispatch until its texts are stored: S, rows; the next batch's
 ``load`` and ``stage`` spans fall inside it), ``forward``
-(``_forward_batch``: B, S), ``h2d`` (the copy of waveforms and lengths to
+(``_forward_batch``: B, S), ``subsample`` (``ConformerCTC.forward``'s
+subsample and input projection: B, T input frames, factor), ``h2d`` (the copy of waveforms and lengths to
 the card), ``attn_fwd`` (``ops.flash_attention._fwd``: B, H, Kh, T, D,
 dtype), ``attn_relpos_fwd`` (``ops.relpos_attention.relpos_attention``,
 the Conformer (L) block's attention: B, H, T, D, dtype), ``decode`` (the

@@ -27,7 +27,7 @@ turkish_asr_tpu/train/checkpoint.py:32-80 names them).
 import numpy as np
 import torch
 
-from turkish_asr_torch.models.conformer import ConformerCTC, ModelConfig
+from turkish_asr_torch.models.conformer import ConformerCTC, DwStriding8Subsample, ModelConfig
 
 
 def _np(x):
@@ -187,29 +187,48 @@ def config_from_state_dict(sd, n_heads=4, n_mels=None, masked_norm=False):
     recoverable from MQA shapes and input_proj pins only n_mels // 4, so
     both come from the checkpoint's config when it has one.
 
+    The subsample is NeMo's ``dw_striding`` by 8 where ``subsample.2`` is a
+    depthwise (C, 1, 3, 3) kernel followed by a pointwise ``subsample.3``
+    (C channels from ``subsample.0``; input_proj pins the mel bins after
+    three halvings, n_mels 80 by default), else the reference's two
+    convolutions by 4.
+
     The keys say the block: ``attn.linear_pos.weight`` is Conformer (L)'s
     (``block="conformer"``, full K/V heads, n_heads from ``pos_bias_u``'s
     rows). The depthwise kernel's size comes from
     ``conv.depthwise_conv.weight`` and the feed-forward's width from
     ``ff1.linear1.weight`` (twice the hidden units for the flagship's
     SwiGLU)."""
-    d_model = sd["subsample.0.weight"].shape[0]
+    channels = sd["subsample.0.weight"].shape[0]
     flattened = sd["input_proj.weight"].shape[1]
-    if flattened % d_model != 0:
-        raise ValueError(f"input_proj in-dim {flattened} is not a multiple of "
-                         f"d_model {d_model}; not a reference-shaped checkpoint")
-    if n_mels is None:
-        n_mels = flattened // d_model * 4
-    elif int(n_mels) // 4 != flattened // d_model:
-        raise ValueError(f"checkpoint config says n_mel_channels={n_mels} but "
-                         f"input_proj implies n_mels // 4 == {flattened // d_model}")
+    subsample = {}
+    if "subsample.3.weight" in sd and tuple(sd["subsample.2.weight"].shape) == (channels, 1, 3, 3):
+        d_model = sd["input_proj.weight"].shape[0]
+        bins = flattened // channels
+        if n_mels is None:
+            n_mels = 8 * bins
+        if flattened != channels * bins or DwStriding8Subsample.out_bins(int(n_mels)) != bins:
+            raise ValueError(f"input_proj in-dim {flattened} is not {channels} subsample "
+                             f"channels times the mel bins of n_mels={n_mels} after the "
+                             f"subsample by 8")
+        subsample = {"subsample": "dw_striding8", "subsample_channels": channels}
+    else:
+        d_model = channels
+        if flattened % d_model != 0:
+            raise ValueError(f"input_proj in-dim {flattened} is not a multiple of "
+                             f"d_model {d_model}; not a reference-shaped checkpoint")
+        if n_mels is None:
+            n_mels = flattened // d_model * 4
+        elif int(n_mels) // 4 != flattened // d_model:
+            raise ValueError(f"checkpoint config says n_mel_channels={n_mels} but "
+                             f"input_proj implies n_mels // 4 == {flattened // d_model}")
     n_blocks = 0
     while f"blocks.{n_blocks}.ff1.linear1.weight" in sd:
         n_blocks += 1
     if not n_blocks:
         return ModelConfig(n_mels=int(n_mels), d_model=d_model, n_heads=n_heads, n_blocks=0,
                            n_classes=sd["fc.weight"].shape[0], dropout=0.0,
-                           masked_norm=masked_norm)
+                           masked_norm=masked_norm, **subsample)
     relpos = "blocks.0.attn.linear_pos.weight" in sd
     if relpos:
         n_heads = sd["blocks.0.attn.pos_bias_u"].shape[0]
@@ -221,7 +240,7 @@ def config_from_state_dict(sd, n_heads=4, n_mels=None, masked_norm=False):
                        dropout=0.0, use_mqa=use_mqa, masked_norm=masked_norm,
                        conv_kernel_size=sd["blocks.0.conv.depthwise_conv.weight"].shape[-1],
                        ff_mult=hidden // d_model,
-                       block="conformer" if relpos else "flagship")
+                       block="conformer" if relpos else "flagship", **subsample)
 
 
 def load_pt(path, device, n_heads=4, allow_pickle=False):
@@ -248,6 +267,9 @@ def load_pt(path, device, n_heads=4, allow_pickle=False):
         sd, stored = blob["model_state_dict"], blob.get("config") or {}
     else:
         sd, stored = blob, {}
+    if stored.get("xscaling"):
+        raise ValueError(f"{path}'s config sets NeMo's xscaling (the input projection's "
+                         f"output times sqrt(d_model)); no model of the port scales it")
     cfg = config_from_state_dict(
         sd, n_heads=int(stored.get("n_heads", n_heads)),
         n_mels=stored.get("n_mel_channels"),
